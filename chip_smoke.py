@@ -6,17 +6,26 @@ their plain versions.
     python3 chip_smoke.py --profile       # also torch.profiler breakdowns
 
 Phases, in order; any failure raises and the process exits non-zero:
-  1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build every kernel of the serving path from ``ray_tpu_torch/ops/csrc``;
+  1. the card (the nvidia-smi name and power limit on a line of their
+     own), torch and CUDA versions;
+  2. build every kernel library in ``ray_tpu_torch/ops/csrc`` (one nvcc
+     per source, all started together);
   3. kernel phase: each kernel's wrapper on the card against its plain
-     PyTorch version at the shapes the main path gives it (and the CPU
+     PyTorch version at the shapes the main paths give it (and the CPU
      test shapes), with times, the bound and a library yardstick;
-  4. slice phase: ``LLMEngine`` serving llama7b (bf16, full width, random
+  4. training phase: ``make_train_step`` on the 750M flagship config of
+     ``bench.py`` (full width, full depth, remat, batch 12 x 2048, random
+     weights and tokens from seeds) for 2 warm-up and 8 timed steps; every
+     step launches flash_fwd 2 x 10 times (forward + remat recompute) and
+     each backward kernel 10 times, and the loss falls;
+  5. full-width gradient check: loss and every gradient of the 750M model
+     through the kernels against the same model through plain attention;
+  6. serving phase: ``LLMEngine`` serving llama7b (bf16, full width, random
      weights from a seed) through the paged engine, then a shared-prefix
-     pass and a chunked-prefill pass; the kernel's launch counter must
-     equal 32 x the full-prompt prefills, and full-width prefill logits
-     through the kernel must match the same forward through the plain
-     version.
+     pass and a chunked-prefill pass; the forward kernel's launch counter
+     must equal 32 x the full-prompt prefills, and full-width prefill
+     logits through the kernel must match the same forward through the
+     plain version.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a
 card the script fails before printing any result.
@@ -25,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -51,6 +61,22 @@ LSE_TOL = 2e-3
 # the per-layer difference above is carried through 32 bf16 layers.
 LOGITS_REL_TOL = 5e-2
 LOGITS_TOP1_MIN = 0.9
+# Backward kernels (bf16 in and out; P and dS rounded to bf16 as the A
+# operand of their products) against the plain backward in fp32 on the
+# same bf16 inputs, o and lse: max |d - plain| / max |plain| per output.
+# An emulation of those roundings in fp32 on the CPU gave <= 0.5% at
+# [1, 2, S, 128] for S up to 2048, mostly the final bf16 rounding of
+# values up to ~5 (the card gives <= 0.5% too); 2e-2 leaves a 4x margin.
+GRAD_REL_TOL = 2e-2
+# Full-width (10-layer, bf16) training loss and gradients, kernels vs plain
+# attention: the per-layer differences above pass through 10 bf16 layers
+# and their remat recompute. Loss relative, global grad norm relative,
+# and every parameter's gradient by cosine.
+TRAIN_LOSS_REL_TOL = 1e-2
+TRAIN_GNORM_REL_TOL = 2e-2
+TRAIN_GRAD_COS_MIN = 0.99
+
+TRAIN_SHAPE_LABEL = "train [12, 18, 2048, 128]"
 
 
 def log(msg: str) -> None:
@@ -90,17 +116,29 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(b, H, KV, q_len, k_len, hd, causal, elem_bytes, card):
+# Per attention kernel: FLOPs per kept (query, key) pair per head_dim
+# element, q-side and kv-side 16-bit tensors read or written once, and
+# fp32 rows ([b*H, q_len]) read or written once.
+_ATTN_WORK = {
+    "fwd": (4, 2, 2, 1),  # S, P V; q, o; k, v; lse
+    "dq": (6, 3, 2, 2),   # S, dP, dQ; q, do, dq; k, v; lse, delta
+    "dkv": (8, 2, 4, 2),  # S, dP, dV, dK; q, do; k, v, dk, dv; lse, delta
+}
+
+
+def attention_bound_ms(b, H, KV, q_len, k_len, hd, causal, elem_bytes, card, kind="fwd"):
     """Least time for the work: max(bytes / memory rate, FLOPs / bf16 peak).
-    Bytes: q, o, k, v once each plus the fp32 lse. FLOPs: 2 products of
-    2*hd per (query, key) pair this causal mask keeps."""
+    FLOPs: the kernel's products, 2*hd each, per (query, key) pair this
+    causal mask keeps; bytes: each input and output once (``_ATTN_WORK``)."""
     flops_peak, bw = peaks(card)
+    per_pair, n_q, n_kv, n_rows = _ATTN_WORK[kind]
     if causal:
         pairs = sum(min(i + 1, k_len) for i in range(q_len))
     else:
         pairs = q_len * k_len
-    flops = 4.0 * hd * pairs * b * H
-    nbytes = elem_bytes * hd * (2 * b * H * q_len + 2 * b * KV * k_len) + 4 * b * H * q_len
+    flops = per_pair * hd * pairs * b * H
+    nbytes = (elem_bytes * hd * (n_q * b * H * q_len + n_kv * b * KV * k_len)
+              + 4 * n_rows * b * H * q_len)
     t_ops, t_bytes = flops / flops_peak * 1e3, nbytes / bw * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -122,6 +160,7 @@ def kernel_phase(card: str) -> dict:
         for s in (16, 32, 64, 128, 256, 512, 1024)
     ]
     other_shapes = [
+        (TRAIN_SHAPE_LABEL, 12, 18, 18, 2048, 2048, 128, True, torch.bfloat16, True),
         ("gqa 32q/8kv S=2048", 2, 32, 8, 2048, 2048, 128, True, torch.bfloat16, True),
         ("causal 128 hd64", 2, 4, 4, 128, 128, 64, True, torch.bfloat16, False),
         ("noncausal ragged 96x160 hd64", 1, 4, 2, 96, 160, 64, False, torch.bfloat16, False),
@@ -182,27 +221,178 @@ def kernel_phase(card: str) -> dict:
         else:
             raise AssertionError("flash_attention accepted an input the kernel cannot take")
     head = next(r for r in rows if r["shape"] == "slice S=1024")
-    return {"rows": rows, "max_err": max_err, "head": head}
+    train = next(r for r in rows if r["shape"] == TRAIN_SHAPE_LABEL)
+    return {"rows": rows, "max_err": max_err, "head": head, "train": train}
+
+
+def sdpa_backward_ms(q, k, v, do, causal, scale):
+    """Library yardstick for the backward: SDPA forward+backward minus SDPA
+    forward, each timed on its own (the backward alone cannot be called)."""
+    import torch.nn.functional as F
+
+    gqa = q.shape[1] != k.shape[1]
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=scale, enable_gqa=gqa)
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal, scale=scale,
+                                           enable_gqa=gqa)
+        torch.autograd.grad(o, (qr, kr, vr), do)
+
+    return time_ms(fwd_bwd) - time_ms(fwd)
+
+
+def bwd_kernel_phase(card: str) -> dict:
+    """dQ and dK/dV kernels against ``flash_attention_bwd_plain`` (fp32 on
+    the same bf16 inputs, o and lse from the forward kernel)."""
+    from ray_tpu_torch.ops import attention as att
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    # (label, b, H, KV, q_len, k_len, hd, causal, dtype, timed)
+    shapes = [
+        (f"slice S={s}", 1, 18, 18, s, s, 128, True, torch.bfloat16, False)
+        for s in (128, 512, 2048)
+    ] + [
+        (TRAIN_SHAPE_LABEL, 12, 18, 18, 2048, 2048, 128, True, torch.bfloat16, True),
+        ("causal 128 hd64", 2, 4, 4, 128, 128, 64, True, torch.bfloat16, False),
+        ("noncausal ragged 96x160 hd64", 2, 2, 2, 96, 160, 64, False, torch.bfloat16, False),
+        ("gqa 8:2 causal hd64", 2, 8, 2, 128, 128, 64, True, torch.bfloat16, False),
+        ("gqa 4:2 noncausal ragged 96x160 hd64", 1, 4, 2, 96, 160, 64, False, torch.bfloat16,
+         False),
+        ("bq>bk ragged causal 192 hd32", 1, 2, 2, 192, 192, 32, True, torch.bfloat16, False),
+        ("cross-length causal 320x128 hd32", 1, 2, 2, 320, 128, 32, True, torch.bfloat16, False),
+        ("cross-length causal 320x96 hd32", 1, 2, 2, 320, 96, 32, True, torch.bfloat16, False),
+        ("cross-length causal 64x200 hd32", 1, 2, 2, 64, 200, 32, True, torch.bfloat16, False),
+        ("hd16 gqa 2:1 causal 48", 1, 2, 1, 48, 48, 16, True, torch.bfloat16, False),
+        ("hd48 noncausal 70x33", 1, 3, 1, 70, 33, 48, False, torch.bfloat16, False),
+        ("fp16 causal 256 hd128", 1, 8, 8, 256, 256, 128, True, torch.float16, False),
+    ]
+    rows = []
+    max_abs = {"dq": 0.0, "dkv": 0.0}
+    for label, b, H, KV, ql, kl, hd, causal, dtype, timed in shapes:
+        q, do = rand(b, H, ql, hd, dtype=dtype), rand(b, H, ql, hd, dtype=dtype)
+        k, v = rand(b, KV, kl, hd, dtype=dtype), rand(b, KV, kl, hd, dtype=dtype)
+        scale = hd**-0.5
+        o, lse = att.flash_forward_cuda(q, k, v, causal, scale)
+        dq, dk, dv = att.flash_backward_cuda(q, k, v, o, lse, do, causal, scale)
+        torch.cuda.synchronize()
+        ref = att.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                            do.float(), causal, scale)
+        row = {"shape": label, "rel_tol": GRAD_REL_TOL}
+        ok = True
+        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            err = (got.float() - want).abs().max().item()
+            rel = err / max(want.abs().max().item(), 1e-30)
+            row[f"{name}_abs_err"], row[f"{name}_rel_err"] = err, rel
+            ok = ok and bool(torch.isfinite(got).all()) and got.shape == want.shape and (
+                rel <= GRAD_REL_TOL)
+            key = "dq" if name == "dq" else "dkv"
+            max_abs[key] = max(max_abs[key], err)
+        if timed:
+            ptrs = (q, k, v, do, lse, (do.float() * o.float()).sum(-1))
+            row["dq_ms"] = time_ms(lambda: att.flash_bwd_dq_cuda(*ptrs, causal, scale))
+            row["dkv_ms"] = time_ms(lambda: att.flash_bwd_dkv_cuda(*ptrs, causal, scale))
+            row["plain_ms"] = time_ms(lambda: att.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal, scale), iters=3, warmup=1)
+            row["library_ms"] = sdpa_backward_ms(q, k, v, do, causal, scale)
+            for kind in ("dq", "dkv"):
+                row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = attention_bound_ms(
+                    b, H, KV, ql, kl, hd, causal, q.element_size(), card, kind)
+        log(f"[kernel] flash_bwd {label}: " + json.dumps(row))
+        if not ok:
+            raise AssertionError(f"flash_bwd disagrees with its plain version at {label}: {row}")
+        rows.append(row)
+    # Keys that no query reaches (causal, k_len > q_len) get exactly zero.
+    q, k, v, do = rand(1, 2, 64, 32), rand(1, 2, 200, 32), rand(1, 2, 200, 32), rand(1, 2, 64, 32)
+    o, lse = att.flash_forward_cuda(q, k, v, True, 0.125)
+    _, dk, dv = att.flash_backward_cuda(q, k, v, o, lse, do, True, 0.125)
+    if not (torch.equal(dk[:, :, 64:], torch.zeros_like(dk[:, :, 64:]))
+            and torch.equal(dv[:, :, 64:], torch.zeros_like(dv[:, :, 64:]))):
+        raise AssertionError("flash_bwd: keys past every query got a gradient")
+    log("[kernel] flash_bwd unreached keys: exactly zero")
+    # A CUDA input the kernels cannot take raises; it never falls back.
+    q, k, v = rand(1, 2, 64, 32), rand(1, 2, 64, 32), rand(1, 2, 64, 32)
+    o, lse = att.flash_forward_cuda(q, k, v, True, 0.125)
+    bad_inputs = (
+        ("fp32 inputs", lambda: att.flash_backward_cuda(
+            q.float(), k.float(), v.float(), o.float(), lse, o.float(), True, 0.125)),
+        ("non-contiguous do", lambda: att.flash_backward_cuda(
+            q, k, v, o, lse, torch.empty_like(o).transpose(2, 3).contiguous().transpose(2, 3),
+            True, 0.125)),
+        ("bf16 lse", lambda: att.flash_backward_cuda(q, k, v, o, lse.bfloat16(), o, True, 0.125)),
+        ("head_dim 24", lambda: att.flash_backward_cuda(
+            *(rand(1, 2, 8, 24) for _ in range(4)), torch.zeros(1, 2, 8, device=dev),
+            rand(1, 2, 8, 24), True, 0.125)),
+    )
+    for what, bad in bad_inputs:
+        try:
+            bad()
+        except (TypeError, ValueError) as e:
+            log(f"[kernel] flash_bwd rejected {what} as expected: {e}")
+        else:
+            raise AssertionError(f"flash_backward_cuda accepted {what}")
+    train = next(r for r in rows if r["shape"] == TRAIN_SHAPE_LABEL)
+    return {"rows": rows, "max_abs": max_abs, "train": train}
 
 
 def profile_pass(eng, prompts, n_new, label: str, card: str) -> dict:
-    """One generate_batch timed on the host clock with the profiler off,
-    then the same work again under torch.profiler for the device-busy time
-    (sum of kernel self device time; one stream) and the top kernels. The
-    idle share is 1 - busy / unprofiled wall time."""
+    """One ``generate_batch`` profiled (see ``profile_step``)."""
+    return profile_step(lambda: eng.generate_batch(prompts, n_new), label, card)
+
+
+def train_config():
+    """The 750M flagship config of ``bench.py:67-77``: full width, full depth."""
+    from ray_tpu_torch.models import transformer as tf
+
+    return tf.TransformerConfig(vocab_size=32000, d_model=2304, n_layers=10, n_heads=18,
+                                n_kv_heads=18, d_ff=5760, max_seq_len=2048,
+                                dtype=torch.bfloat16, remat=True)
+
+
+def launch_counts():
+    from ray_tpu_torch.ops import attention as att
+
+    return {"fwd": att.flash_attention.launches, "dq": att.flash_bwd_dq_cuda.launches,
+            "dkv": att.flash_bwd_dkv_cuda.launches}
+
+
+def reset_launch_counts():
+    from ray_tpu_torch.ops import attention as att
+
+    att.flash_attention.launches = 0
+    att.flash_bwd_dq_cuda.launches = 0
+    att.flash_bwd_dkv_cuda.launches = 0
+
+
+def profile_step(fn, label: str, card: str) -> dict:
+    """``fn`` timed on the host clock with the profiler off, then again
+    under torch.profiler for the device-busy time (sum of kernel self
+    device time; one stream) and the top kernels. The idle share is
+    1 - busy / unprofiled wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.generate_batch(prompts, n_new)
+    fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.generate_batch(prompts, n_new)
+        fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    # Device events only; user annotations (Optimizer.step, ...) span
+    # kernels already counted and would count their time twice.
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+              and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.self_device_time_total for e in events)
-    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     out = {
         "pass": label, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
@@ -212,6 +402,129 @@ def profile_pass(eng, prompts, n_new, label: str, card: str) -> dict:
     }
     log(f"[profile] {label} on {card}: " + json.dumps(out))
     return out
+
+
+def training_phase(card: str, smi: str, profile: bool = False) -> dict:
+    """``make_train_step`` on the 750M config, batch 12 x 2048, 2 warm-up
+    and 8 timed steps, with the exact launch counts of every step."""
+    from ray_tpu_torch.models import transformer as tf
+    from ray_tpu_torch.parallel import make_optimizer, make_train_state, make_train_step
+    from ray_tpu_torch.parallel.train_step import param_leaves
+
+    dev = torch.device("cuda")
+    cfg = train_config()
+    batch_size, seq, warmup, steps = 12, 2048, 2, 8
+    opt = make_optimizer(lr=3e-4, warmup=10)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                                         device=dev, optimizer=opt)
+    n_params = sum(p.numel() for p in param_leaves(params))
+    if n_params != tf.num_params(cfg):
+        raise AssertionError(f"params {n_params} != num_params {tf.num_params(cfg)}")
+    tokens = torch.randint(0, cfg.vocab_size, (batch_size, seq + 1), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    batch = {"tokens": tokens}
+    step = make_train_step(cfg, opt)
+    per_step = {"fwd": 2 * cfg.n_layers, "dq": cfg.n_layers, "dkv": cfg.n_layers}
+    losses, gnorms, step_s = [], [], []
+    reset_launch_counts()
+    for i in range(warmup + steps):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])  # both wait for the step
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+        gnorms.append(gnorm)
+        after = launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        if got != per_step:
+            raise AssertionError(f"step {i}: launches {got} != {per_step}")
+        log(f"[train] step {i}: loss {loss:.6f} grad_norm {gnorm:.6f} "
+            f"{step_s[-1] * 1e3:.1f} ms launches {got}")
+    launches = launch_counts()
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"non-finite loss or grad norm: {losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    timed = step_s[warmup:]
+    mean_s = sum(timed) / len(timed)
+    flops_peak, _ = peaks(card)
+    tokens_per_step = batch_size * seq
+    result = {
+        "config": "750M flagship (bench.py): vocab 32000, d_model 2304, 10 layers, 18 heads, "
+                  "18 kv heads, d_ff 5760, bf16 compute, fp32 params + AdamW, remat full",
+        "params": n_params, "batch": batch_size, "seq": seq, "steps_timed": steps,
+        "step_ms_mean": mean_s * 1e3, "step_ms_min": min(timed) * 1e3,
+        "step_ms_max": max(timed) * 1e3,
+        "tokens_per_s": tokens_per_step / mean_s,
+        "mfu": tf.flops_per_token(cfg, seq) * tokens_per_step / mean_s / flops_peak,
+        "flops_per_token": tf.flops_per_token(cfg, seq),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": losses, "grad_norms": gnorms, "launches": launches,
+        "launches_per_step": per_step, "card": smi,
+    }
+    log(f"[train] on {card}: " + json.dumps(result))
+    if profile:
+        result["profile"] = profile_step(lambda: step(params, opt_state, batch), "train step",
+                                         card)
+    del params, opt_state, batch, step
+    torch.cuda.empty_cache()
+    return result
+
+
+def grad_check_phase(card: str) -> dict:
+    """Loss and every gradient of the 750M model on one 1 x 2048 batch,
+    through the kernels and through plain attention under autograd."""
+    from ray_tpu_torch.models import transformer as tf
+    from ray_tpu_torch.ops import attention as att
+    from ray_tpu_torch.parallel.train_step import global_norm, param_leaves
+
+    dev = torch.device("cuda")
+    cfg = train_config()
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(2), device=dev)
+    leaves = param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2049), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(3))
+
+    def plain_attn(q, k, v):
+        return att.flash_attention_plain(q, k, v, True, q.shape[-1] ** -0.5)[0]
+
+    plain_attn.supports_gqa = True
+
+    def loss_and_grads(attn_fn):
+        loss = tf.loss_fn(params, {"tokens": tokens}, cfg, attn_fn)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.item(), grads
+
+    reset_launch_counts()
+    lk, gk = loss_and_grads(None)
+    counts = launch_counts()
+    lp, gp = loss_and_grads(plain_attn)
+    if launch_counts() != counts or counts["dq"] != cfg.n_layers:
+        raise AssertionError(f"kernel launches {counts}, then {launch_counts()} under plain")
+
+    nk, np_ = global_norm(gk).item(), global_norm(gp).item()
+    cos = [torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+           for a, b in zip(gk, gp)]
+    finite = all(bool(torch.isfinite(g).all()) for g in gk) and math.isfinite(lk)
+    result = {"loss_kernel": lk, "loss_plain": lp, "loss_rel_err": abs(lk - lp) / abs(lp),
+              "grad_norm_kernel": nk, "grad_norm_plain": np_,
+              "grad_norm_rel_err": abs(nk - np_) / np_, "grad_cos_min": min(cos),
+              "loss_rel_tol": TRAIN_LOSS_REL_TOL, "grad_norm_rel_tol": TRAIN_GNORM_REL_TOL,
+              "grad_cos_min_allowed": TRAIN_GRAD_COS_MIN, "launches": counts}
+    log(f"[gradcheck] 750M, 1 x 2048, kernels vs plain attention on {card}: "
+        + json.dumps(result))
+    if not (finite and result["loss_rel_err"] <= TRAIN_LOSS_REL_TOL
+            and result["grad_norm_rel_err"] <= TRAIN_GNORM_REL_TOL
+            and result["grad_cos_min"] >= TRAIN_GRAD_COS_MIN):
+        raise AssertionError(f"full-width gradients disagree: {result}")
+    del params, leaves, gk, gp
+    torch.cuda.empty_cache()
+    return result
 
 
 def slice_phase(card: str, profile: bool = False) -> dict:
@@ -351,11 +664,19 @@ def slice_phase(card: str, profile: bool = False) -> dict:
     return result
 
 
+def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms, bound, library_ms,
+               shape, smi, **extra):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms,
+            "shape": shape, "card": smi, **extra}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true", help="build + kernel phase only")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile a prefill and a decode pass")
+                    help="also profile a training step, a prefill and a decode pass")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on the card",
@@ -365,39 +686,50 @@ def main() -> int:
 
     card = torch.cuda.get_device_name(0)
     smi = card_line()
-    log(f"[card] {smi}")
+    print(smi, flush=True)
     log(f"[versions] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
-    info = _build.build("flash_fwd")
-    log(f"[build] flash_fwd.cu: {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"[build]   {line.strip()}")
+    t0 = time.perf_counter()
+    for name, info in _build.build_all().items():
+        log(f"[build] {name}.cu: {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "smem" in line or "Compiling" in line:
+                log(f"[build]   {line.strip()}")
+    log(f"[build] all kernel libraries: {time.perf_counter() - t0:.2f} s wall")
     kern = kernel_phase(card)
-    launches = None
+    bwd = bwd_kernel_phase(card)
+    torch.cuda.empty_cache()
+    launches = {"fwd": None, "dq": None, "dkv": None}
+    serving_launches = None
     if not args.kernels_only:
+        tr = training_phase(card, smi, profile=args.profile)
+        launches = tr["launches"]
+        grad_check_phase(card)
         sl = slice_phase(card, profile=args.profile)
-        launches = sl["main"]["flash_fwd_launches"]
-    head = kern["head"]
-    kernels = [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "ray_tpu/ops/attention.py:56",
-        "launches": launches,
-        "max_abs_err": kern["max_err"],
-        "max_err": kern["max_err"],
-        "ms": head["ms"],
-        "kernel_ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "shape": head["shape"],
-        "card": smi,
-    }]
+        serving_launches = sl["main"]["flash_fwd_launches"]
+    head, ftrain, btrain = kern["head"], kern["train"], bwd["train"]
+    kernels = [
+        kernel_row("flash_fwd", "ray_tpu_torch/ops/csrc/flash_fwd.cu",
+                   "ray_tpu/ops/attention.py:56", launches["fwd"], kern["max_err"],
+                   ftrain["ms"], ftrain["plain_ms"], (ftrain["bound_ms"], ftrain["bound_by"]),
+                   ftrain["library_ms"], ftrain["shape"], smi,
+                   serving_launches=serving_launches, serving_shape=head["shape"],
+                   serving_ms=head["ms"], serving_plain_ms=head["plain_ms"],
+                   serving_bound_ms=head["bound_ms"], serving_library_ms=head["library_ms"]),
+        kernel_row("flash_bwd_dq", "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+                   "ray_tpu/ops/attention.py:201", launches["dq"], bwd["max_abs"]["dq"],
+                   btrain["dq_ms"], btrain["plain_ms"],
+                   (btrain["dq_bound_ms"], btrain["dq_bound_by"]), btrain["library_ms"],
+                   btrain["shape"], smi,
+                   note="plain_ms and library_ms cover the whole backward (dq, dk, dv)"),
+        kernel_row("flash_bwd_dkv", "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+                   "ray_tpu/ops/attention.py:262", launches["dkv"], bwd["max_abs"]["dkv"],
+                   btrain["dkv_ms"], btrain["plain_ms"],
+                   (btrain["dkv_bound_ms"], btrain["dkv_bound_by"]), btrain["library_ms"],
+                   btrain["shape"], smi,
+                   note="plain_ms and library_ms cover the whole backward (dq, dk, dv)"),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -1,22 +1,26 @@
-"""Llama-style decoder-only transformer (inference forward).
+"""Llama-style decoder-only transformer: forward, losses and remat.
 
 Counterpart of ``ray_tpu/models/transformer.py``, held to it by
 ``tests/test_torch_transformer.py``. Parameters are a plain dict of
 tensors with the JAX tree's names and layouts: layer weights are stacked
 on a leading ``[n_layers]`` axis and projections are ``[in, out]``
 (``h @ w``), so ``models/convert.py`` moves a JAX tree over without a
-transpose. ``decoder_stack`` is a Python loop over the stacked layers.
+transpose. ``decoder_stack`` is a Python loop over the stacked layers
+(the JAX ``lax.scan``), each layer wrapped in
+``torch.utils.checkpoint`` under ``remat`` (the JAX ``jax.checkpoint``).
 
 Attention runs through ``ray_tpu_torch.ops.attention.flash_attention``
-(the Hopper kernel on CUDA tensors). This slice is inference only: remat,
-the MoE MLP and the losses come with the training slice.
+(the Hopper kernels on CUDA tensors, forward and backward). The MLP is
+dense or Mixtral-style top-k MoE with dense dispatch.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.attention import flash_attention
 
@@ -34,13 +38,17 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     max_seq_len: int = 4096
     dtype: torch.dtype = torch.bfloat16  # compute dtype
-    # Kept for field parity with the reference config; the inference
-    # forward here never rematerialises.
+    # Recompute each layer in backward (``torch.utils.checkpoint``); only
+    # under autograd, so inference never pays for it.
     remat: bool = True
-    num_experts: int = 0  # 0 = dense MLP (the only MLP this slice ports)
+    num_experts: int = 0  # 0 = dense MLP
     experts_per_token: int = 2
+    # Blockwise cross-entropy chunk (tokens); 0 = materialize full logits.
     logits_chunk: int = 0
+    # "full" recomputes the whole layer. "dots" and "attn" (selective
+    # checkpointing in the reference) are not ported yet: ROADMAP A10.
     remat_policy: str = "full"
+    # Kept for field parity: the layer loop here has nothing to unroll.
     scan_unroll: int = 1
 
     @property
@@ -74,8 +82,6 @@ def init_params(
     ``normal * fan_in**-0.5``, embedding std 1, norms 1. ``generator``
     must live on ``device``. The numbers differ from ``jax.random``'s;
     tests that compare the two packages convert one tree instead."""
-    if cfg.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
     L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -93,10 +99,21 @@ def init_params(
         "wv": dense_init(L, D, KV * HD, fan_in=D),
         "wo": dense_init(L, H * HD, D, fan_in=H * HD),
         "mlp_norm": norm_init(L, D),
-        "w_gate": dense_init(L, D, F, fan_in=D),
-        "w_up": dense_init(L, D, F, fan_in=D),
-        "w_down": dense_init(L, F, D, fan_in=F),
     }
+    if cfg.num_experts:
+        E = cfg.num_experts
+        layers.update(
+            router=dense_init(L, D, E, fan_in=D),
+            w_gate=dense_init(L, E, D, F, fan_in=D),
+            w_up=dense_init(L, E, D, F, fan_in=D),
+            w_down=dense_init(L, E, F, D, fan_in=F),
+        )
+    else:
+        layers.update(
+            w_gate=dense_init(L, D, F, fan_in=D),
+            w_up=dense_init(L, D, F, fan_in=D),
+            w_down=dense_init(L, F, D, fan_in=F),
+        )
     return {
         "embed": dense_init(cfg.vocab_size, D, fan_in=1),
         "layers": layers,
@@ -106,8 +123,19 @@ def init_params(
 
 
 def layer_params(params: Params, i: int) -> Params:
-    """Layer ``i``'s slice of the stacked ``[L, ...]`` weights (views)."""
+    """Layer ``i``'s slice of the stacked ``[L, ...]`` weights (views).
+    For inference; ``decoder_stack`` unbinds the stacks once instead."""
     return {name: w[i] for name, w in params["layers"].items()}
+
+
+def unbind_layers(params: Params):
+    """Every layer's weights as views, from ONE ``unbind`` per stacked
+    weight. Indexing ``w[i]`` per layer would make autograd build a full
+    ``[L, ...]`` zero tensor per layer per weight in backward; an unbind's
+    backward is a single stack."""
+    stacks = {name: w.unbind(0) for name, w in params["layers"].items()}
+    n = len(next(iter(stacks.values())))
+    return [{name: ws[i] for name, ws in stacks.items()} for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -173,12 +201,29 @@ def attention_block(
 
 
 def mlp_block(x, lp: Params, cfg: TransformerConfig):
-    if cfg.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
     h = rms_norm(x, lp["mlp_norm"])
+    if cfg.num_experts:
+        return x + _moe_mlp(h, lp, cfg)
     gate = torch.nn.functional.silu(h @ lp["w_gate"].to(h.dtype))
     up = h @ lp["w_up"].to(h.dtype)
     return x + (gate * up) @ lp["w_down"].to(h.dtype)
+
+
+def _moe_mlp(h, lp: Params, cfg: TransformerConfig):
+    """Mixtral-style top-k MoE with dense dispatch (every expert runs on
+    every token; ``combine`` zeroes the unused ones), as the reference."""
+    b, s, _ = h.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    logits = (h @ lp["router"].to(h.dtype)).float()  # [b, s, E]
+    weights, idx = torch.topk(logits, K, dim=-1)
+    weights = torch.softmax(weights, dim=-1)
+    # combine[b, s, E]: weight of each expert for each token (0 if unused)
+    combine = torch.zeros(b, s, E, dtype=torch.float32, device=h.device).scatter(-1, idx, weights)
+    combine = combine.to(h.dtype)
+    gate = torch.nn.functional.silu(torch.einsum("bsd,edf->bsef", h, lp["w_gate"].to(h.dtype)))
+    up = torch.einsum("bsd,edf->bsef", h, lp["w_up"].to(h.dtype))
+    expert_out = torch.einsum("bsef,efd->bsed", gate * up, lp["w_down"].to(h.dtype))
+    return torch.einsum("bsed,bse->bsd", expert_out, combine)
 
 
 def decoder_layer(x, lp: Params, cfg: TransformerConfig, positions, attn_fn=None):
@@ -192,12 +237,29 @@ def decoder_layer(x, lp: Params, cfg: TransformerConfig, positions, attn_fn=None
 
 
 def embed(params: Params, tokens, cfg: TransformerConfig):
+    """Gather, then cast: the reference casts the whole table first
+    (``transformer.py:248``), so its embedding gradient is a bf16
+    scatter-add where this one accumulates in fp32 (identical at fp32)."""
     return params["embed"][tokens].to(cfg.dtype)
 
 
 def decoder_stack(params: Params, h, cfg: TransformerConfig, positions, attn_fn=None):
-    for i in range(cfg.n_layers):
-        h = decoder_layer(h, layer_params(params, i), cfg, positions, attn_fn)
+    """The layer loop; with ``cfg.remat`` under autograd each layer is
+    recomputed in backward (non-reentrant checkpoint, policy "full")."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    if cfg.remat:
+        if cfg.remat_policy not in ("full", "dots", "attn"):
+            raise ValueError(
+                f"remat_policy must be 'full', 'dots' or 'attn', got {cfg.remat_policy!r}")
+        if cfg.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r} (selective checkpointing) is not ported "
+                "yet: ROADMAP A10")
+    for lp in unbind_layers(params):
+        if remat:
+            h = checkpoint(decoder_layer, h, lp, cfg, positions, attn_fn, use_reentrant=False)
+        else:
+            h = decoder_layer(h, lp, cfg, positions, attn_fn)
     return h
 
 
@@ -215,7 +277,91 @@ def hidden_states(params: Params, tokens, cfg: TransformerConfig, attn_fn=None, 
     return decoder_stack(params, h, cfg, positions, attn_fn)
 
 
-@torch.no_grad()
 def forward(params: Params, tokens, cfg: TransformerConfig, attn_fn=None, positions=None):
-    """tokens: [b, s] int → logits [b, s, vocab] fp32."""
+    """tokens: [b, s] int → logits [b, s, vocab] fp32. Differentiable;
+    inference callers run it under ``torch.no_grad``."""
     return unembed(params, hidden_states(params, tokens, cfg, attn_fn, positions), cfg)
+
+
+def _masked_mean_nll(ll, mask):
+    if mask is not None:
+        return -(ll * mask).sum() / mask.sum().clamp_min(1)
+    return -ll.mean()
+
+
+def token_nll(logits, targets, mask=None):
+    """Mean next-token negative log-likelihood, optionally mask-weighted."""
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, targets[..., None])[..., 0]
+    return _masked_mean_nll(ll, mask)
+
+
+def chunked_token_nll(params: Params, h, targets, cfg: TransformerConfig, mask=None,
+                      chunk: int = 256):
+    """Blockwise next-token NLL: the ``[b, s, vocab]`` logits are never
+    materialized. Sequence chunks are unembedded, reduced to per-token
+    log-likelihoods and discarded; each chunk is checkpointed, so backward
+    recomputes its logits instead of keeping every chunk's softmax."""
+    b, s, _ = h.shape
+    pad = (-s) % chunk
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad))
+
+    def chunk_ll(hc, tc):
+        logp = torch.log_softmax(unembed(params, hc, cfg), dim=-1)
+        return logp.gather(-1, tc[..., None])[..., 0]
+
+    lls = []
+    for c0 in range(0, s + pad, chunk):
+        hc, tc = h[:, c0:c0 + chunk], targets[:, c0:c0 + chunk]
+        if torch.is_grad_enabled():
+            lls.append(checkpoint(chunk_ll, hc, tc, use_reentrant=False))
+        else:
+            lls.append(chunk_ll(hc, tc))
+    return _masked_mean_nll(torch.cat(lls, dim=1)[:, :s], mask)
+
+
+def loss_fn(params: Params, batch: Dict[str, Any], cfg: TransformerConfig, attn_fn=None,
+            logits_chunk: Optional[int] = None):
+    """batch: {"tokens": [b, s+1]} (optional "mask" [b, s+1]) → next-token
+    cross-entropy. ``logits_chunk`` > 0 switches to the blockwise NLL (no
+    full logits); defaults to ``cfg.logits_chunk``."""
+    if logits_chunk is None:
+        logits_chunk = cfg.logits_chunk
+    tokens = batch["tokens"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    mask = batch.get("mask")
+    mask = mask[:, 1:] if mask is not None else None
+    if logits_chunk:
+        h = hidden_states(params, inputs, cfg, attn_fn)
+        return chunked_token_nll(params, h, targets, cfg, mask, chunk=logits_chunk)
+    return token_nll(forward(params, inputs, cfg, attn_fn), targets, mask)
+
+
+def param_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
+    """The parameter tree's shapes, from the config alone (no allocation)."""
+    L, D, F, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    H, KV, HD, E = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.num_experts
+    layers = {
+        "attn_norm": (L, D), "wq": (L, D, H * HD), "wk": (L, D, KV * HD),
+        "wv": (L, D, KV * HD), "wo": (L, H * HD, D), "mlp_norm": (L, D),
+    }
+    if E:
+        layers.update(router=(L, D, E), w_gate=(L, E, D, F), w_up=(L, E, D, F),
+                      w_down=(L, E, F, D))
+    else:
+        layers.update(w_gate=(L, D, F), w_up=(L, D, F), w_down=(L, F, D))
+    return {"embed": (V, D), "layers": layers, "final_norm": (D,), "lm_head": (D, V)}
+
+
+def num_params(cfg: TransformerConfig) -> int:
+    shapes = param_shapes(cfg)
+    leaves = [shapes["embed"], shapes["final_norm"], shapes["lm_head"], *shapes["layers"].values()]
+    return sum(math.prod(s) for s in leaves)
+
+
+def flops_per_token(cfg: TransformerConfig, seq_len: int) -> float:
+    """Approximate training FLOPs/token (6·N params + attention term)."""
+    attn = 12 * cfg.n_layers * cfg.d_model * seq_len  # fwd+bwd QK^T and PV
+    return 6.0 * num_params(cfg) + attn

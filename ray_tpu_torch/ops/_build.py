@@ -4,18 +4,22 @@ Each ``csrc/<name>.cu`` exposes a plain C entry point. It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under ``ops/build/`` at its
 first use and loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds rather than minutes). The library's file name carries a
-hash of its source, so an edited kernel never loads a stale build.
+hash of its source and of every shared header ``csrc/*.cuh``, so an
+edited kernel or header never loads a stale build. ``build_all`` starts
+one ``nvcc`` per source at once.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
@@ -39,11 +43,18 @@ def _nvcc() -> str:
     return path
 
 
+def sources() -> List[str]:
+    """The names of every kernel library: one per ``csrc/<name>.cu``."""
+    return sorted(os.path.basename(p)[:-3] for p in glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256()
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu")] + sorted(
+            glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(name: str) -> dict:
@@ -68,6 +79,15 @@ def build(name: str) -> dict:
         )
     os.replace(tmp, out)
     return {"path": out, "seconds": seconds, "log": proc.stdout + proc.stderr}
+
+
+def build_all() -> Dict[str, dict]:
+    """``build`` every kernel library, one ``nvcc`` per source, all started
+    together. Raises the first failure after every build has ended."""
+    names = sources()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+    return {name: f.result() for name, f in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

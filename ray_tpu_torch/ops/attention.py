@@ -1,25 +1,25 @@
-"""Attention op: the Hopper flash-attention forward kernel and its plain version.
+"""Attention op: the Hopper flash-attention kernels and their plain versions.
 
 Counterpart of ``ray_tpu/ops/attention.py``. Layouts are the JAX
 package's: q is ``[batch, q_heads, seq, head_dim]``, k/v are
 ``[batch, kv_heads, seq, head_dim]`` with ``q_heads % kv_heads == 0``.
-GQA is native: the kernel indexes the shared kv head of each q-head group
-and never materialises repeated K/V.
+GQA is native: the kernels index the shared kv head of each q-head group
+and never materialise repeated K/V.
 
-- ``flash_attention``: a CUDA tensor goes to the hand-written ``sm_90a``
-  kernel in ``csrc/flash_fwd.cu`` (built at first launch); a CPU tensor
-  goes to ``flash_attention_plain``. A CUDA input the kernel cannot take
-  raises; nothing falls back to the plain version on the card.
-- ``flash_attention_plain``: the same function in plain PyTorch, with the
-  kernel's TOP-LEFT causal convention (``q_id >= k_id``, as
-  ``_flash_fwd_kernel`` masks) and its fp32 ``lse``.
+- ``flash_attention``: differentiable (``FlashAttention``, the port of the
+  JAX ``custom_vjp``). On CUDA tensors its forward runs the hand-written
+  ``sm_90a`` kernel in ``csrc/flash_fwd.cu`` and its backward the dQ and
+  dK/dV kernels in ``csrc/flash_bwd.cu`` (built at first launch); on CPU
+  tensors both run the plain versions. A CUDA input the kernels cannot
+  take raises; nothing falls back to the plain version on the card.
+- ``flash_attention_plain`` / ``flash_attention_bwd_plain``: the kernels'
+  functions in plain PyTorch, with the kernels' TOP-LEFT causal
+  convention (``q_id >= k_id``, as ``_flash_fwd_kernel`` and the backward
+  kernels mask) and the fp32 ``lse``.
 - ``reference_attention``: a faithful port of the JAX oracle, with the
   BOTTOM-RIGHT ``tril(k=k_len-q_len)`` mask. The two conventions agree
   whenever ``q_len == k_len``, which holds on every model path; only the
   tests use this function.
-
-Forward only: the autograd Function and the backward kernels
-(``_flash_bwd_dq_kernel``, ``_flash_bwd_dkv_kernel``) come with training.
 """
 from __future__ import annotations
 
@@ -51,30 +51,72 @@ def reference_attention(q, k, v, causal: bool = True, scale: Optional[float] = N
     return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
 
 
+def _compute_dtype(q: torch.Tensor) -> torch.dtype:
+    """fp32, or fp64 for fp64 inputs (so ``gradcheck`` can run)."""
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
+def _masked_scores(qg, kf, causal: bool, scale: float):
+    """``scale · Q Kᵀ`` on the grouped view, with the kernels' top-left
+    causal mask (``q_id >= k_id`` kept) set to the finite mask value."""
+    s = torch.matmul(qg, kf.transpose(-1, -2)) * scale
+    if causal:
+        q_len, k_len = s.shape[-2], s.shape[-1]
+        q_ids = torch.arange(q_len, device=s.device)[:, None]
+        k_ids = torch.arange(k_len, device=s.device)[None, :]
+        s = s.masked_fill(q_ids < k_ids, DEFAULT_MASK_VALUE)
+    return s
+
+
 def flash_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, scale: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch → (o in q's dtype, fp32 lse
     ``[b, H, q_len]``). Scores are fp32 (inputs upcast, then scaled), the
     causal mask is top-left, and ``l`` is clamped at 1e-30 as in
-    ``_flash_fwd_kernel``. GQA by a grouped view, without repeating K/V."""
+    ``_flash_fwd_kernel``. GQA by a grouped view, without repeating K/V.
+    fp64 inputs compute, and return ``lse``, in fp64."""
     b, H, q_len, hd = q.shape
     KV, k_len = k.shape[1], k.shape[2]
     G = H // KV
-    qg = q.float().reshape(b, KV, G, q_len, hd)
-    kf = k.float()[:, :, None]  # [b, KV, 1, k_len, hd]
-    vf = v.float()[:, :, None]
-    s = torch.matmul(qg, kf.transpose(-1, -2)) * scale  # [b, KV, G, q_len, k_len]
-    if causal:
-        q_ids = torch.arange(q_len, device=q.device)[:, None]
-        k_ids = torch.arange(k_len, device=q.device)[None, :]
-        s = s.masked_fill(q_ids < k_ids, DEFAULT_MASK_VALUE)
+    ct = _compute_dtype(q)
+    qg = q.to(ct).reshape(b, KV, G, q_len, hd)
+    kf = k.to(ct)[:, :, None]  # [b, KV, 1, k_len, hd]
+    vf = v.to(ct)[:, :, None]
+    s = _masked_scores(qg, kf, causal, scale)  # [b, KV, G, q_len, k_len]
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     o = torch.matmul(p, vf) / l
     lse = (m + torch.log(l))[..., 0]
     return o.reshape(b, H, q_len, hd).to(q.dtype), lse.reshape(b, H, q_len)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool, scale: float):
+    """The backward kernels' function in plain PyTorch → (dq, dk, dv) in
+    the inputs' dtypes, dk/dv kv-head shaped ``[b, KV, k_len, hd]``.
+
+    Computed in fp32 (fp64 for fp64 inputs) from the forward's ``o`` and
+    ``lse``, as ``_flash_backward`` does: Δ = rowsum(dO∘O), P = exp(S −
+    lse) under the top-left mask, dS = P∘(dO·Vᵀ − Δ), dQ = scale·dS·K,
+    dK = scale·dSᵀ·Q, dV = Pᵀ·dO; GQA by a grouped view, dK/dV summed
+    over each kv head's group of q heads."""
+    b, H, q_len, hd = q.shape
+    KV, k_len = k.shape[1], k.shape[2]
+    G = H // KV
+    ct = _compute_dtype(q)
+    qg = q.to(ct).reshape(b, KV, G, q_len, hd)
+    dog = do.to(ct).reshape(b, KV, G, q_len, hd)
+    kf = k.to(ct)[:, :, None]
+    vf = v.to(ct)[:, :, None]
+    delta = (dog * o.to(ct).reshape(b, KV, G, q_len, hd)).sum(-1, keepdim=True)
+    p = torch.exp(_masked_scores(qg, kf, causal, scale)
+                  - lse.to(ct).reshape(b, KV, G, q_len, 1))
+    ds = p * (torch.matmul(dog, vf.transpose(-1, -2)) - delta)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qg).sum(2) * scale
+    dv = torch.matmul(p.transpose(-1, -2), dog).sum(2)
+    return dq.reshape(b, H, q_len, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_kernel_inputs(q, k, v):
@@ -104,13 +146,15 @@ def _check_kernel_inputs(q, k, v):
             raise ValueError(f"flash_attention kernel: {name} must be 16-byte aligned")
 
 
-def _kernel_lib():
+def _kernel_fn(lib_name: str, fn_name: str, n_ptrs: int):
+    """The C entry point ``fn_name`` of ``csrc/<lib_name>.cu``: ``n_ptrs``
+    pointers, then (batch, heads, kv_heads, q_len, k_len, head_dim, scale,
+    causal, is_bf16, stream)."""
     from ray_tpu_torch.ops import _build
 
-    lib = _build.load("flash_fwd")
-    fn = lib.flash_fwd
+    fn = getattr(_build.load(lib_name), fn_name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -129,7 +173,7 @@ def flash_forward_cuda(q, k, v, causal: bool, scale: float):
         return o, lse
     if k_len == 0:
         raise ValueError("flash_attention kernel: k_len must be > 0")
-    fn = _kernel_lib()
+    fn = _kernel_fn("flash_fwd", "flash_fwd", 5)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
@@ -142,15 +186,118 @@ def flash_forward_cuda(q, k, v, causal: bool, scale: float):
     return o, lse
 
 
-def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None):
-    """Flash attention forward → o ``[b, H, q_len, hd]`` in q's dtype.
+def _check_bwd_inputs(q, k, v, do, lse, delta):
+    _check_kernel_inputs(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"flash backward: do{tuple(do.shape)}/{do.dtype} must match "
+                         f"q{tuple(q.shape)}/{q.dtype}")
+    for name, t in (("do", do), ("lse", lse), ("delta", delta)):
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash backward: {name} must be a contiguous, 16-byte aligned "
+                             f"tensor on {q.device}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:3] or t.dtype != torch.float32:
+            raise ValueError(f"flash backward: {name} must be fp32 {tuple(q.shape[:3])}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if q.shape[2] == 0 or k.shape[2] == 0:
+        raise ValueError("flash backward kernels: q_len and k_len must be > 0")
 
-    CUDA tensors run the hand-written kernel (``flash_attention.launches``
-    counts its launches); CPU tensors run ``flash_attention_plain``."""
+
+def _bwd_args(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """The pointers and shape arguments both backward entry points share."""
+    b, H, q_len, hd = q.shape
+    KV, k_len = k.shape[1], k.shape[2]
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr())
+    shape = (b, H, KV, q_len, k_len, hd, float(scale), int(bool(causal)),
+             int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
+    return ptrs, shape
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """Launch the ``sm_90a`` dQ kernel → dq (q's shape and dtype); counts
+    its launches in ``flash_bwd_dq_cuda.launches``. ``delta`` is
+    rowsum(dO∘O) in fp32 (``flash_backward_cuda`` computes it)."""
+    _check_bwd_inputs(q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    ptrs, shape = _bwd_args(q, k, v, do, lse, delta, causal, scale)
+    err = _kernel_fn("flash_bwd", "flash_bwd_dq", 7)(*ptrs, dq.data_ptr(), *shape)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq kernel launch failed: cudaError {err}")
+    flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """Launch the ``sm_90a`` dK/dV kernel → (dk, dv), kv-head shaped;
+    counts its launches in ``flash_bwd_dkv_cuda.launches``."""
+    _check_bwd_inputs(q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    ptrs, shape = _bwd_args(q, k, v, do, lse, delta, causal, scale)
+    err = _kernel_fn("flash_bwd", "flash_bwd_dkv", 8)(*ptrs, dk.data_ptr(), dv.data_ptr(), *shape)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: cudaError {err}")
+    flash_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_bwd_dq_cuda.launches = 0
+flash_bwd_dkv_cuda.launches = 0
+
+
+def flash_backward_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
+    """The backward on the card → (dq, dk, dv), dk/dv kv-head shaped:
+    Δ = rowsum(dO∘O) as one torch op (fp32), then the dQ kernel and the
+    dK/dV kernel. Raises on any input the kernels cannot take and on a
+    launch error; never runs the plain version."""
+    _check_kernel_inputs(q, k, v)
+    if o.shape != q.shape or o.dtype != q.dtype or o.device != q.device:
+        raise ValueError(f"flash backward: o{tuple(o.shape)}/{o.dtype} on {o.device} must "
+                         f"match q{tuple(q.shape)}/{q.dtype} on {q.device}")
+    if q.shape[2] == 0:
+        return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its backward (the port of the JAX
+    ``custom_vjp``): saves ``(q, k, v, o, lse)``; the kernels on CUDA
+    tensors, the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        if q.device.type == "cpu":
+            o, lse = flash_attention_plain(q, k, v, causal, scale)
+        else:
+            o, lse = flash_forward_cuda(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        # The grad arrives as a transposed view ([b, s, H, hd] → [b, H, s, hd]).
+        do = do.contiguous()
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do, ctx.causal, ctx.scale)
+        else:
+            dq, dk, dv = flash_backward_cuda(q, k, v, o, lse, do, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None):
+    """Flash attention → o ``[b, H, q_len, hd]`` in q's dtype, differentiable.
+
+    CUDA tensors run the hand-written kernels (``flash_attention.launches``
+    counts forward launches, ``flash_bwd_dq_cuda.launches`` and
+    ``flash_bwd_dkv_cuda.launches`` backward ones); CPU tensors run the
+    plain versions."""
     s = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, s)[0]
-    return flash_forward_cuda(q, k, v, causal, s)[0]
+    return FlashAttention.apply(q, k, v, causal, s)
 
 
 flash_attention.launches = 0

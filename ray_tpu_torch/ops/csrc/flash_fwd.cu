@@ -28,54 +28,21 @@
 // wgmma, no warp specialisation. The probabilities are rounded to the
 // input dtype for the P V product (the row sum l stays fp32).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
+
+using flash::kMaskValue;
+using flash::ld32;
+using flash::mma16816;
+using flash::pack2;
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kWarps = kBlockQ / 16;  // each warp owns 16 query rows
 constexpr int kThreads = kWarps * 32;
-// ray_tpu/ops/attention.py DEFAULT_MASK_VALUE = -0.7 * fp32 max.
-constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;
-
-template <bool kBf16>
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  if constexpr (kBf16) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-}
-
-// Two floats rounded to the 16-bit input type, the lower index in the
-// lower half (the mma fragment order).
-template <bool kBf16>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  if constexpr (kBf16) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  } else {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-}
-
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {

@@ -7,8 +7,15 @@ numpy seed and go through both packages. Both sides compute in fp32 (the
 JAX side under ``default_matmul_precision("highest")``), so the tolerance
 is fp32 summation-order noise on O(1) values: 2e-5.
 
-The CUDA kernel itself only runs on the card: ``test_kernel_matches_plain_on_card``
-is marked ``cuda`` and skips without one; ``chip_smoke.py`` is its full check.
+The plain backward is held to the Pallas backward kernels in the same
+way (``_flash_backward(..., interpret=True)``, dq, dk and dv), on the
+same o and lse, at the same shapes: fp32 sums over up to 320 keys or
+queries of O(1) terms, so 1e-4. ``FlashAttention`` (the autograd Function)
+is checked with ``torch.autograd.gradcheck`` in float64.
+
+The CUDA kernels themselves only run on the card: the tests that need one
+are marked ``cuda`` and skip without it; ``chip_smoke.py`` is their full
+check.
 """
 import jax
 import jax.numpy as jnp
@@ -20,6 +27,7 @@ from ray_tpu.ops import attention as jatt
 from ray_tpu_torch.ops import attention as tatt
 
 TOL = 2e-5
+BWD_TOL = 1e-4
 
 # (id, q shape, kv shape, causal, pallas block_q, block_k)
 SHAPES = [
@@ -116,6 +124,73 @@ def test_kernel_path_rejects_non_cuda_inputs():
         tatt.flash_forward_cuda(q, q, q, True, 0.25)
 
 
+def _pallas_bwd(q, k, v, do, causal, scale, bq, bk):
+    """The Pallas forward then backward kernels (interpret mode): o, lse and
+    (dq, dk, dv)."""
+    with jax.default_matmul_precision("highest"):
+        args = [jnp.asarray(a) for a in (q, k, v)]
+        o, lse = jatt._flash_forward(*args, causal, scale, bq, bk, True)
+        grads = jatt._flash_backward(*args, o, lse, jnp.asarray(do), causal, scale, bq, bk, True)
+        return np.asarray(o), np.asarray(lse), [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("name,qs,ks,causal,bq,bk", SHAPES, ids=[s[0] for s in SHAPES])
+def test_plain_bwd_matches_pallas_interpret(name, qs, ks, causal, bq, bk):
+    q, k, v = _inputs(qs, ks, seed=10)
+    do = np.random.default_rng(11).standard_normal(qs).astype(np.float32)
+    scale = qs[-1] ** -0.5
+    o, lse, ref = _pallas_bwd(q, k, v, do, causal, scale, bq, bk)
+    got = tatt.flash_attention_bwd_plain(*(torch.tensor(a) for a in (q, k, v, o, lse, do)),
+                                         causal, scale)
+    for g, r, shape in zip(got, ref, (qs, ks, ks)):
+        assert tuple(g.shape) == shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), r, rtol=0, atol=BWD_TOL)
+
+
+@pytest.mark.parametrize(
+    "qs,ks,causal",
+    [((1, 2, 12, 16), (1, 2, 12, 16), True),
+     ((1, 4, 10, 16), (1, 2, 10, 16), True),
+     ((1, 2, 11, 16), (1, 1, 7, 16), True),
+     ((1, 4, 9, 16), (1, 2, 13, 16), False)],
+    ids=["causal", "gqa", "cross_length", "gqa_noncausal_ragged"],
+)
+def test_flash_attention_gradcheck_float64(qs, ks, causal):
+    """The autograd Function's backward (the plain backward on CPU) is the
+    derivative of its forward, by finite differences in float64."""
+    q, k, v = (torch.tensor(a, dtype=torch.float64, requires_grad=True)
+               for a in _inputs(qs, ks, seed=12))
+    assert torch.autograd.gradcheck(lambda q, k, v: tatt.flash_attention(q, k, v, causal, 0.3),
+                                    (q, k, v))
+
+
+def test_flash_attention_grads_match_autograd_through_plain():
+    """A transposed, non-contiguous upstream grad (as ``attention_block``
+    gives) reaches the same gradients as autograd through the plain
+    forward; the CPU backward counts no kernel launch."""
+    q, k, v = (torch.tensor(a, requires_grad=True)
+               for a in _inputs((2, 4, 24, 32), (2, 2, 24, 32), seed=13))
+    w = torch.tensor(np.random.default_rng(14).standard_normal((2, 24, 4, 32)).astype(np.float32))
+    before = (tatt.flash_bwd_dq_cuda.launches, tatt.flash_bwd_dkv_cuda.launches)
+    (tatt.flash_attention(q, k, v).transpose(1, 2) * w).sum().backward()
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    o = tatt.flash_attention_plain(q, k, v, True, 32**-0.5)[0]
+    (o.transpose(1, 2) * w).sum().backward()
+    for g, t in zip(got, (q, k, v)):
+        torch.testing.assert_close(g, t.grad, rtol=0, atol=1e-5)
+    assert (tatt.flash_bwd_dq_cuda.launches, tatt.flash_bwd_dkv_cuda.launches) == before
+
+
+def test_backward_kernel_path_rejects_non_cuda_inputs():
+    """The backward wrapper never quietly runs the plain version."""
+    q = torch.zeros(1, 2, 16, 16, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tatt.flash_backward_cuda(q, q, q, q, lse, q, True, 0.25)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -134,3 +209,23 @@ def test_kernel_matches_plain_on_card(cuda_device, name, qs, ks, causal, bq, bk)
     o_ref, lse_ref = tatt.flash_attention_plain(q.float(), k.float(), v.float(), causal, scale)
     torch.testing.assert_close(o.float(), o_ref, rtol=0, atol=2e-2)
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,qs,ks,causal,bq,bk", SHAPES, ids=[s[0] for s in SHAPES])
+def test_bwd_kernels_match_plain_on_card(cuda_device, name, qs, ks, causal, bq, bk):
+    """bf16 dQ and dK/dV kernels vs the plain backward in fp32 on the same
+    bf16 inputs, o and lse: P and dS rounded to bf16 as the A operand of
+    their products, plus the bf16 rounding of the outputs (2e-2 of the
+    largest value; chip_smoke.py measured <= 0.5%)."""
+    q, k, v = (torch.tensor(a, device=cuda_device).bfloat16() for a in _inputs(qs, ks, seed=10))
+    do = torch.tensor(np.random.default_rng(11).standard_normal(qs).astype(np.float32),
+                      device=cuda_device).bfloat16()
+    scale = qs[-1] ** -0.5
+    o, lse = tatt.flash_forward_cuda(q, k, v, causal, scale)
+    got = tatt.flash_backward_cuda(q, k, v, o, lse, do, causal, scale)
+    ref = tatt.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                         do.float(), causal, scale)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == torch.bfloat16
+        assert (g.float() - r).abs().max().item() <= 2e-2 * r.abs().max().item()

@@ -40,7 +40,7 @@ def _forbidden(name):
 def test_port_files_are_found():
     files = [os.path.relpath(p, REPO_ROOT) for p in _port_files()]
     for expected in ("chip_smoke.py", "ray_tpu_torch/ops/attention.py",
-                     "ray_tpu_torch/serve/llm_engine.py"):
+                     "ray_tpu_torch/serve/llm_engine.py", "ray_tpu_torch/parallel/train_step.py"):
         assert expected in files
 
 
@@ -67,10 +67,12 @@ def test_import_loads_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.models.transformer, ray_tpu_torch.models.convert\n"
         "import ray_tpu_torch.models.generate, ray_tpu_torch.models.paged\n"
         "import ray_tpu_torch.serve.llm_engine, ray_tpu_torch.serve.metrics\n"
+        "import ray_tpu_torch.parallel, ray_tpu_torch.parallel.train_step\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu'))\n"
         "print('NEW', len(new), 'BAD', bad)\n"
-        "sys.exit(1 if bad or 'ray_tpu_torch.serve.llm_engine' not in new else 0)\n"
+        "sys.exit(1 if bad or 'ray_tpu_torch.serve.llm_engine' not in new\n"
+        "         or 'ray_tpu_torch.parallel.train_step' not in new else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO_ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, env=env,

@@ -219,3 +219,29 @@ def test_sampled_generate_runs_with_filters(models):
     assert out.shape == (1, 6) and int(out.min()) >= 0 and int(out.max()) < tcfg.vocab_size
     with pytest.raises(ValueError, match="Generator"):
         tgen.generate(tp, tcfg, prompt, 2, temperature=0.8)
+
+
+def test_moe_paged_prefill_decode_and_contiguous_decode_match_jax():
+    """The MoE MLP (top-2 of 4 experts) on the serving paths: paged prefill
+    and decode, and the contiguous cache's decode, against the reference."""
+    jcfg = jtf.TransformerConfig.tiny(dtype=jnp.float32, remat=False, num_experts=4)
+    tcfg = ttf.TransformerConfig.tiny(dtype=torch.float32, remat=False, num_experts=4)
+    jp = jtf.init_params(jax.random.PRNGKey(8), jcfg)
+    tp = params_from_jax(jax.device_get(jp), device="cpu")
+    jc, tc = _caches(jcfg, tcfg)
+    toks = np.random.default_rng(6).integers(0, 256, (1, 8)).astype(np.int32)
+    jl, jc, tl, tc = _prefill_both((jcfg, jp, tcfg, tp), toks, np.array([1], np.int32), jc, tc)
+    np.testing.assert_allclose(tl.numpy(), jl, rtol=0, atol=TOL)
+    tables, lens = np.array([[1, 2, 0, 0]], np.int32), np.array([8], np.int32)
+    tokens = np.asarray(jl)[-1:].argmax(-1).astype(np.int32)
+    jl, jc = jpg.paged_decode_step(jp, jcfg, jnp.asarray(tokens), jc, jnp.asarray(tables),
+                                   jnp.asarray(lens))
+    tl, tc = tpg.paged_decode_step(tp, tcfg, _i64(tokens), tc, _i64(tables), _i64(lens))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=TOL)
+    _assert_cache_equal(tc, jc)
+    jl, jcache = jgen.prefill(jp, jcfg, jnp.asarray(toks[:, :5]), max_len=8)
+    tl, tcache = tgen.prefill(tp, tcfg, _i64(toks[:, :5]), max_len=8)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=TOL)
+    jl, _ = jgen.decode_step(jp, jcfg, jnp.asarray(toks[:, 5]), jcache, 5)
+    tl, _ = tgen.decode_step(tp, tcfg, _i64(toks[:, 5]), tcache, 5)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=TOL)
