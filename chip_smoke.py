@@ -9,10 +9,15 @@ Phases, in order; any failure raises and the process exits non-zero:
   1. the card (the nvidia-smi name and power limit on a line of their
      own), torch and CUDA versions;
   2. build every kernel library in ``ray_tpu_torch/ops/csrc`` (one nvcc
-     per source, all started together);
+     per source, all started together), with ptxas's registers, shared
+     memory and spills, and each library's count of wgmma (``HGMMA``) and
+     TMA-load (``UTMALDG``) instructions: the TMA/wgmma kernels
+     (``HOPPER_KERNELS``) must have both;
   3. kernel phase: each kernel's wrapper on the card against its plain
      PyTorch version at the shapes the main paths give it (and the CPU
-     test shapes), with times, the bound and a library yardstick;
+     test shapes, and the edges of the 128-row tiles), with times, the
+     bound and a library yardstick; dK/dV run twice more at the timed
+     shapes must agree bitwise (no atomics);
   4. training phase: ``make_train_step`` on the 750M flagship config of
      ``bench.py`` (full width, full depth, remat, batch 12 x 2048, random
      weights and tokens from seeds) for 2 warm-up and 8 timed steps; every
@@ -35,6 +40,8 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -77,6 +84,20 @@ TRAIN_GNORM_REL_TOL = 2e-2
 TRAIN_GRAD_COS_MIN = 0.99
 
 TRAIN_SHAPE_LABEL = "train [12, 18, 2048, 128]"
+GQA_SHAPE_LABEL = "gqa 32q/8kv S=2048"
+# The edges of the forward's 128-row q and 128-key tiles and of the dK/dV
+# kernel's 128-key blocks: (label, b, H, KV, q_len, k_len, hd, causal,
+# dtype, timed), as in the phases below.
+EDGE_SHAPES = [
+    ("causal 129 hd128", 1, 2, 2, 129, 129, 128, True, torch.bfloat16, False),
+    ("gqa 4:1 noncausal ragged 200x328 hd128", 1, 4, 1, 200, 328, 128, False, torch.bfloat16,
+     False),
+    ("causal 255 hd64", 1, 2, 2, 255, 255, 64, True, torch.bfloat16, False),
+    # head_dim 80: the second 64-column box is mostly past hd (zero-filled).
+    ("hd80 gqa 2:1 causal 130", 1, 4, 2, 130, 130, 80, True, torch.bfloat16, False),
+]
+# Kernels redesigned around TMA and wgmma: their SASS must hold both.
+HOPPER_KERNELS = ("flash_fwd", "flash_bwd_dkv")
 
 
 def log(msg: str) -> None:
@@ -89,6 +110,17 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def sass_counts(path: str) -> dict:
+    """``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in a built
+    library's SASS, read with the toolkit's ``cuobjdump``."""
+    from ray_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", path], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
 
 
 def peaks(name: str):
@@ -161,7 +193,7 @@ def kernel_phase(card: str) -> dict:
     ]
     other_shapes = [
         (TRAIN_SHAPE_LABEL, 12, 18, 18, 2048, 2048, 128, True, torch.bfloat16, True),
-        ("gqa 32q/8kv S=2048", 2, 32, 8, 2048, 2048, 128, True, torch.bfloat16, True),
+        (GQA_SHAPE_LABEL, 2, 32, 8, 2048, 2048, 128, True, torch.bfloat16, True),
         ("causal 128 hd64", 2, 4, 4, 128, 128, 64, True, torch.bfloat16, False),
         ("noncausal ragged 96x160 hd64", 1, 4, 2, 96, 160, 64, False, torch.bfloat16, False),
         ("gqa 8:2 causal hd64", 2, 8, 2, 128, 128, 64, True, torch.bfloat16, False),
@@ -172,7 +204,7 @@ def kernel_phase(card: str) -> dict:
         ("hd16 causal 48", 1, 2, 1, 48, 48, 16, True, torch.bfloat16, False),
         ("hd48 noncausal 70x33", 1, 3, 1, 70, 33, 48, False, torch.bfloat16, False),
         ("fp16 causal 256 hd128", 1, 8, 8, 256, 256, 128, True, torch.float16, False),
-    ]
+    ] + EDGE_SHAPES
     rows = []
     max_err = 0.0
     for label, b, H, KV, ql, kl, hd, causal, dtype, timed in slice_shapes + other_shapes:
@@ -213,7 +245,8 @@ def kernel_phase(card: str) -> dict:
     log("[kernel] flash_fwd causal no-leak check: exact")
     # A CUDA input the kernel cannot take raises; it never falls back.
     for bad in (lambda: att.flash_attention(q.float(), k.float(), v.float()),
-                lambda: att.flash_attention(rand(1, 2, 8, 24), rand(1, 2, 8, 24), rand(1, 2, 8, 24))):
+                lambda: att.flash_attention(rand(1, 2, 8, 24), rand(1, 2, 8, 24), rand(1, 2, 8, 24)),
+                lambda: att.flash_forward_cuda(q, k, v, True, -0.125)):
         try:
             bad()
         except (TypeError, ValueError) as e:
@@ -274,7 +307,8 @@ def bwd_kernel_phase(card: str) -> dict:
         ("hd16 gqa 2:1 causal 48", 1, 2, 1, 48, 48, 16, True, torch.bfloat16, False),
         ("hd48 noncausal 70x33", 1, 3, 1, 70, 33, 48, False, torch.bfloat16, False),
         ("fp16 causal 256 hd128", 1, 8, 8, 256, 256, 128, True, torch.float16, False),
-    ]
+        (GQA_SHAPE_LABEL, 2, 32, 8, 2048, 2048, 128, True, torch.bfloat16, True),
+    ] + EDGE_SHAPES
     rows = []
     max_abs = {"dq": 0.0, "dkv": 0.0}
     for label, b, H, KV, ql, kl, hd, causal, dtype, timed in shapes:
@@ -298,6 +332,12 @@ def bwd_kernel_phase(card: str) -> dict:
             max_abs[key] = max(max_abs[key], err)
         if timed:
             ptrs = (q, k, v, do, lse, (do.float() * o.float()).sum(-1))
+            # dK/dV sums in a fixed order (no atomics): bitwise repeatable.
+            runs = [att.flash_bwd_dkv_cuda(*ptrs, causal, scale) for _ in range(2)]
+            row["dkv_bitwise_repeatable"] = all(
+                torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+            ok = ok and row["dkv_bitwise_repeatable"] and all(
+                torch.equal(a, b) for a, b in zip(runs[0], (dk, dv)))
             row["dq_ms"] = time_ms(lambda: att.flash_bwd_dq_cuda(*ptrs, causal, scale))
             row["dkv_ms"] = time_ms(lambda: att.flash_bwd_dkv_cuda(*ptrs, causal, scale))
             row["plain_ms"] = time_ms(lambda: att.flash_attention_bwd_plain(
@@ -340,7 +380,8 @@ def bwd_kernel_phase(card: str) -> dict:
         else:
             raise AssertionError(f"flash_backward_cuda accepted {what}")
     train = next(r for r in rows if r["shape"] == TRAIN_SHAPE_LABEL)
-    return {"rows": rows, "max_abs": max_abs, "train": train}
+    gqa = next(r for r in rows if r["shape"] == GQA_SHAPE_LABEL)
+    return {"rows": rows, "max_abs": max_abs, "train": train, "gqa": gqa}
 
 
 def profile_pass(eng, prompts, n_new, label: str, card: str) -> dict:
@@ -399,6 +440,11 @@ def profile_step(fn, label: str, card: str) -> dict:
         "top_kernels": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
                          "share": e.self_device_time_total / max(busy_us, 1e-9),
                          "count": e.count} for e in top],
+        # The port's own kernels, wherever they rank.
+        "flash_kernels": {e.key.split("<")[0].split("::")[-1]: {
+            "ms": e.self_device_time_total / 1e3, "count": e.count,
+            "share": e.self_device_time_total / max(busy_us, 1e-9)}
+            for e in events if "flash_" in e.key},
     }
     log(f"[profile] {label} on {card}: " + json.dumps(out))
     return out
@@ -690,12 +736,19 @@ def main() -> int:
     log(f"[versions] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
+    sass = {}
     for name, info in _build.build_all().items():
         log(f"[build] {name}.cu: {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line or "Compiling" in line:
+            if any(w in line for w in ("registers", "spill", "smem", "Compiling", "warning",
+                                        "setmaxnreg", "wgmma")):
                 log(f"[build]   {line.strip()}")
+        sass[name] = sass_counts(info["path"])
+        log(f"[build]   SASS of {name}: " + json.dumps(sass[name]))
     log(f"[build] all kernel libraries: {time.perf_counter() - t0:.2f} s wall")
+    for name in HOPPER_KERNELS:
+        if not all(sass[name].values()):
+            raise AssertionError(f"{name} has no wgmma or no TMA load in its SASS: {sass[name]}")
     kern = kernel_phase(card)
     bwd = bwd_kernel_phase(card)
     torch.cuda.empty_cache()
@@ -707,7 +760,7 @@ def main() -> int:
         grad_check_phase(card)
         sl = slice_phase(card, profile=args.profile)
         serving_launches = sl["main"]["flash_fwd_launches"]
-    head, ftrain, btrain = kern["head"], kern["train"], bwd["train"]
+    head, ftrain, btrain, bgqa = kern["head"], kern["train"], bwd["train"], bwd["gqa"]
     kernels = [
         kernel_row("flash_fwd", "ray_tpu_torch/ops/csrc/flash_fwd.cu",
                    "ray_tpu/ops/attention.py:56", launches["fwd"], kern["max_err"],
@@ -715,18 +768,24 @@ def main() -> int:
                    ftrain["library_ms"], ftrain["shape"], smi,
                    serving_launches=serving_launches, serving_shape=head["shape"],
                    serving_ms=head["ms"], serving_plain_ms=head["plain_ms"],
-                   serving_bound_ms=head["bound_ms"], serving_library_ms=head["library_ms"]),
+                   serving_bound_ms=head["bound_ms"], serving_library_ms=head["library_ms"],
+                   sass=sass["flash_fwd"]),
         kernel_row("flash_bwd_dq", "ray_tpu_torch/ops/csrc/flash_bwd.cu",
                    "ray_tpu/ops/attention.py:201", launches["dq"], bwd["max_abs"]["dq"],
                    btrain["dq_ms"], btrain["plain_ms"],
                    (btrain["dq_bound_ms"], btrain["dq_bound_by"]), btrain["library_ms"],
-                   btrain["shape"], smi,
+                   btrain["shape"], smi, sass=sass["flash_bwd"],
                    note="plain_ms and library_ms cover the whole backward (dq, dk, dv)"),
-        kernel_row("flash_bwd_dkv", "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+        kernel_row("flash_bwd_dkv", "ray_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
                    "ray_tpu/ops/attention.py:262", launches["dkv"], bwd["max_abs"]["dkv"],
                    btrain["dkv_ms"], btrain["plain_ms"],
                    (btrain["dkv_bound_ms"], btrain["dkv_bound_by"]), btrain["library_ms"],
-                   btrain["shape"], smi,
+                   btrain["shape"], smi, sass=sass["flash_bwd_dkv"],
+                   bitwise_repeatable=btrain["dkv_bitwise_repeatable"]
+                   and bgqa["dkv_bitwise_repeatable"],
+                   gqa_shape=bgqa["shape"], gqa_ms=bgqa["dkv_ms"],
+                   gqa_bound_ms=bgqa["dkv_bound_ms"], gqa_plain_ms=bgqa["plain_ms"],
+                   gqa_library_ms=bgqa["library_ms"],
                    note="plain_ms and library_ms cover the whole backward (dq, dk, dv)"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,8 +8,9 @@ and never materialise repeated K/V.
 
 - ``flash_attention``: differentiable (``FlashAttention``, the port of the
   JAX ``custom_vjp``). On CUDA tensors its forward runs the hand-written
-  ``sm_90a`` kernel in ``csrc/flash_fwd.cu`` and its backward the dQ and
-  dK/dV kernels in ``csrc/flash_bwd.cu`` (built at first launch); on CPU
+  ``sm_90a`` kernel in ``csrc/flash_fwd.cu`` and its backward the dQ
+  kernel in ``csrc/flash_bwd.cu`` and the dK/dV kernel in
+  ``csrc/flash_bwd_dkv.cu`` (each built at first launch); on CPU
   tensors both run the plain versions. A CUDA input the kernels cannot
   take raises; nothing falls back to the plain version on the card.
 - ``flash_attention_plain`` / ``flash_attention_bwd_plain``: the kernels'
@@ -165,6 +166,8 @@ def flash_forward_cuda(q, k, v, causal: bool, scale: float):
     """Launch the ``sm_90a`` kernel → (o, lse). Raises on any input it
     cannot take and on a launch error; never runs the plain version."""
     _check_kernel_inputs(q, k, v)
+    if not scale > 0:
+        raise ValueError(f"flash_attention kernel: scale must be > 0, got {scale}")
     b, H, q_len, hd = q.shape
     KV, k_len = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
@@ -234,7 +237,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
     _check_bwd_inputs(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     ptrs, shape = _bwd_args(q, k, v, do, lse, delta, causal, scale)
-    err = _kernel_fn("flash_bwd", "flash_bwd_dkv", 8)(*ptrs, dk.data_ptr(), dv.data_ptr(), *shape)
+    err = _kernel_fn("flash_bwd_dkv", "flash_bwd_dkv", 8)(*ptrs, dk.data_ptr(), dv.data_ptr(), *shape)
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv kernel launch failed: cudaError {err}")
     flash_bwd_dkv_cuda.launches += 1

@@ -1,51 +1,42 @@
-// Flash-attention backward for Hopper (sm_90a): two kernels, bound
-// through plain C entry points (loaded with ctypes by
-// ray_tpu_torch/ops/attention.py:flash_backward_cuda).
+// Flash-attention backward, dQ, for Hopper (sm_90a), bound through a
+// plain C entry point (loaded with ctypes by
+// ray_tpu_torch/ops/attention.py:flash_bwd_dq_cuda). dK and dV are
+// computed by csrc/flash_bwd_dkv.cu.
 //
-// Both rebuild the probabilities from the forward's fp32 logsumexp
-// instead of re-running the softmax:
+// It rebuilds the probabilities from the forward's fp32 (natural-log)
+// logsumexp instead of re-running the softmax:
 //   P  = exp(scale * Q K^T + mask - lse)       (masked entries underflow to 0)
 //   dP = dO V^T,  dS = P * (dP - delta),  delta = rowsum(dO * O) (fp32,
 //        computed by the wrapper as one torch op, as the JAX package does
 //        outside Pallas)
-//   dQ = scale * dS K,  dK = scale * dS^T Q,  dV = P^T dO
+//   dQ = scale * dS K
 // with the forward's conventions: native GQA by index (K/V never
 // repeated), top-left causal masking (q_id >= k_id), ragged q_len/k_len
 // masked in-kernel with zero-filled shared tiles, and the finite mask
 // value so a fully masked entry never computes inf - inf. All products run
-// on the tensor cores (mma.sync m16n8k16, fp32 accumulators); P and dS are
-// rounded to the input dtype as the A operand of their products, as the
+// on the tensor cores (mma.sync m16n8k16, fp32 accumulators); dS is
+// rounded to the input dtype as the A operand of its product, as the
 // forward rounds P.
 //
-// Layout at the boundary: q, do, dq [b*H, q_len, hd]; k, v, dk, dv
-// [b*KV, k_len, hd]; lse, delta fp32 [b*H, q_len]; all contiguous, bf16 or
-// fp16, hd a multiple of 16 up to 128.
+// Layout at the boundary: q, do, dq [b*H, q_len, hd]; k, v [b*KV, k_len,
+// hd]; lse, delta fp32 [b*H, q_len]; all contiguous, bf16 or fp16, hd a
+// multiple of 16 up to 128.
 //
 // flash_bwd_dq_kernel replaces ray_tpu/ops/attention.py:_flash_bwd_dq_kernel.
 //   One 128-thread block per (b*H, 64-row q tile), each warp owning 16 query
 //   rows; a loop over 64-row K/V tiles up to the causal diagonal (the TPU
 //   kernel's sequential k-block loop). The dQ tile stays in fp32 registers
 //   for the whole loop and is written once.
-// flash_bwd_dkv_kernel replaces ray_tpu/ops/attention.py:_flash_bwd_dkv_kernel.
-//   One 128-thread block per (b*KV, 64-row k tile), each warp owning 16 key
-//   rows; a loop over the kv head's group of q heads and, inside it, over
-//   32-row q tiles from the causal diagonal on. The TPU kernel walks the
-//   group as its innermost grid dim and sums into a resident fp32 output
-//   block; Hopper blocks run in no order, so the group loop moves inside
-//   the block: dK and dV stay in fp32 registers across the whole group and
-//   are written once, in the input dtype. Deterministic, no atomics.
 //
-// What bounds them on an H100. At the training shape ([12, 18, 2048, 128],
+// What bounds it on an H100. At the training shape ([12, 18, 2048, 128],
 // causal) dQ does 6*hd FLOPs per kept (q, k) pair (three products: S, dP,
-// dQ) and dK/dV 8*hd (S, dP, dV, dK): 0.35 ms and 0.47 ms at 989 TFLOP/s,
-// against 0.17 ms and 0.20 ms of bytes at 3.35 TB/s: tensor-core bound. The
-// design keeps every S x S quantity (S, P, dP, dS) in registers and only
-// streams K/V (dQ) or Q/dO (dK/dV) through shared memory, once per tile.
-// It is the simple first version: synchronous staging through registers,
-// no cp.async/TMA pipelining, no wgmma, the transposed operands (K^T for
-// dQ, Q^T and dO^T for dK/dV) written by scalar stores. Register budget at
-// hd 128 (ptxas -v in the build log): dK/dV hold 2 x 64 fp32 accumulators
-// a thread, which is why their q tile is 32 rows (S and dP: 16 each).
+// dQ): 0.35 ms at 989 TFLOP/s, against 0.17 ms of bytes at 3.35 TB/s:
+// tensor-core bound. The design keeps every S x S quantity (S, P, dP, dS)
+// in registers and streams K/V through shared memory, once per tile. It is
+// the simple first version: synchronous staging through registers, no
+// cp.async/TMA pipelining, no wgmma, K^T written by scalar stores
+// (168 registers at hd 128, no spills). Its Hopper redesign is the next
+// kernel step (flash_fwd.cu and flash_bwd_dkv.cu show the shape).
 
 #include <math.h>
 
@@ -66,23 +57,11 @@ constexpr int kThreads = kWarps * 32;
 // dQ kernel tiles: 64 query rows (16 a warp) x 64-key steps.
 constexpr int kDqBlockQ = kWarps * 16;
 constexpr int kDqBlockK = 64;
-// dK/dV kernel tiles: 64 key rows (16 a warp) x 32-query steps.
-constexpr int kDkvBlockK = kWarps * 16;
-constexpr int kDkvBlockQ = 32;
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
   // sQ, sdO [kDqBlockQ][D+8]; sK, sV [kDqBlockK][D+8]; sKt [D][kDqBlockK+8].
   return (size_t)(2 * kDqBlockQ * (D + 8) + 2 * kDqBlockK * (D + 8) + D * (kDqBlockK + 8)) * 2;
-}
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  // sK, sV [kDkvBlockK][D+8]; sQ, sdO [kDkvBlockQ][D+8];
-  // sQt, sdOt [D][kDkvBlockQ+8]; then fp32 lse and delta [kDkvBlockQ].
-  return (size_t)(2 * kDkvBlockK * (D + 8) + 2 * kDkvBlockQ * (D + 8) +
-                  2 * D * (kDkvBlockQ + 8)) * 2 +
-         (size_t)2 * kDkvBlockQ * 4;
 }
 
 // D is head_dim rounded up to 32, 64 or 128; columns in [hd, D) are
@@ -215,157 +194,9 @@ flash_bwd_dq_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__
   }
 }
 
-template <bool kBf16, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                     const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     uint16_t* __restrict__ dk, uint16_t* __restrict__ dv, int H, int KV,
-                     int q_len, int k_len, int hd, float scale, int causal) {
-  constexpr int BK = kDkvBlockK, BQ = kDkvBlockQ;
-  constexpr int LD = D + 8, LDT = BQ + 8;
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* sK = smem;
-  uint16_t* sV = sK + BK * LD;
-  uint16_t* sQ = sV + BK * LD;
-  uint16_t* sdO = sQ + BQ * LD;
-  uint16_t* sQt = sdO + BQ * LD;
-  uint16_t* sdOt = sQt + D * LDT;
-  float* sLse = reinterpret_cast<float*>(sdOt + D * LDT);
-  float* sDelta = sLse + BQ;
-
-  const int bkv = blockIdx.y;
-  // Under causal masking the first k tiles see the most queries: natural
-  // order starts them first.
-  const int k0 = blockIdx.x * BK;
-  const int group = H / KV;
-  const int b = bkv / KV, kvh = bkv % KV;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int wrow = warp * 16;
-
-  load_tile<BK, D, kThreads, true, false>(sK, nullptr, k + (size_t)bkv * k_len * hd, k0, k_len,
-                                          hd, tid);
-  load_tile<BK, D, kThreads, true, false>(sV, nullptr, v + (size_t)bkv * k_len * hd, k0, k_len,
-                                          hd, tid);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int d = 0; d < D / 8; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[d][e] = dv_acc[d][e] = 0.f;
-
-  // Causal: query rows before k0 see none of this tile.
-  const int t_begin = causal ? k0 / BQ : 0;
-  const int n_tiles = (q_len + BQ - 1) / BQ;
-  for (int hg = 0; hg < group; ++hg) {
-    const int bh = b * H + kvh * group + hg;
-    const uint16_t* qb = q + (size_t)bh * q_len * hd;
-    const uint16_t* dob = dout + (size_t)bh * q_len * hd;
-    for (int t = t_begin; t < n_tiles; ++t) {
-      const int q0 = t * BQ;
-      __syncthreads();  // every warp is done with the previous tile
-      load_tile<BQ, D, kThreads, true, true>(sQ, sQt, qb, q0, q_len, hd, tid);
-      load_tile<BQ, D, kThreads, true, true>(sdO, sdOt, dob, q0, q_len, hd, tid);
-      for (int r = tid; r < BQ; r += kThreads) {
-        const bool in = q0 + r < q_len;
-        sLse[r] = in ? lse[(size_t)bh * q_len + q0 + r] : 0.f;
-        sDelta[r] = in ? delta[(size_t)bh * q_len + q0 + r] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys x 32 queries.
-      float s[BQ / 8][4], dp[BQ / 8][4];
-#pragma unroll
-      for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        load_a(ak, sK, LD, wrow, kk * 16, g, tg);
-        load_a(av, sV, LD, wrow, kk * 16, g, tg);
-#pragma unroll
-        for (int n = 0; n < BQ / 8; ++n) {
-          uint32_t bq[2], bdo[2];
-          load_b(bq, sQ, LD, n * 8, kk * 16, g, tg);
-          load_b(bdo, sdO, LD, n * 8, kk * 16, g, tg);
-          mma16816<kBf16>(s[n], ak, bq);
-          mma16816<kBf16>(dp[n], av, bdo);
-        }
-      }
-      // P^T into s, dS^T into dp. Masked: tiles with a query before one of
-      // the block's keys, and the ragged last q tile.
-      const bool masked = (q0 + BQ > q_len) || (causal && q0 < k0 + BK - 1);
-#pragma unroll
-      for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = n * 8 + tg * 2 + (e & 1);  // query column in the tile
-          float x = s[n][e] * scale;
-          if (masked) {
-            const int key = k0 + wrow + g + (e >> 1) * 8;
-            const int qi = q0 + c;
-            if (qi >= q_len || (causal && qi < key)) x = kMaskValue;
-          }
-          const float p = expf(x - sLse[c]);
-          s[n][e] = p;
-          dp[n][e] = p * (dp[n][e] - sDelta[c]);
-        }
-      }
-      // dV += P^T dO and dK += dS^T Q: the accumulators of two adjacent
-      // n-tiles are one A fragment; dO^T and Q^T give the B fragments.
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        const uint32_t pf[4] = {
-            pack2<kBf16>(s[2 * kk][0], s[2 * kk][1]),
-            pack2<kBf16>(s[2 * kk][2], s[2 * kk][3]),
-            pack2<kBf16>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-            pack2<kBf16>(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-        };
-        const uint32_t df[4] = {
-            pack2<kBf16>(dp[2 * kk][0], dp[2 * kk][1]),
-            pack2<kBf16>(dp[2 * kk][2], dp[2 * kk][3]),
-            pack2<kBf16>(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-            pack2<kBf16>(dp[2 * kk + 1][2], dp[2 * kk + 1][3]),
-        };
-#pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn) {
-          uint32_t bdo[2], bq[2];
-          load_b(bdo, sdOt, LDT, dn * 8, kk * 16, g, tg);
-          load_b(bq, sQt, LDT, dn * 8, kk * 16, g, tg);
-          mma16816<kBf16>(dv_acc[dn], pf, bdo);
-          mma16816<kBf16>(dk_acc[dn], df, bq);
-        }
-      }
-    }
-  }
-
-  // Key rows past k_len (the partial last tile) are never written; a tile
-  // that no query reaches (causal, k0 >= q_len) writes zeros.
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = k0 + wrow + g + 8 * i;
-    if (row < k_len) {
-      uint16_t* dk_row = dk + ((size_t)bkv * k_len + row) * hd;
-      uint16_t* dv_row = dv + ((size_t)bkv * k_len + row) * hd;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const int col = dn * 8 + tg * 2;
-        if (col < hd) {
-          *reinterpret_cast<uint32_t*>(dk_row + col) =
-              pack2<kBf16>(dk_acc[dn][2 * i] * scale, dk_acc[dn][2 * i + 1] * scale);
-          *reinterpret_cast<uint32_t*>(dv_row + col) =
-              pack2<kBf16>(dv_acc[dn][2 * i], dv_acc[dn][2 * i + 1]);
-        }
-      }
-    }
-  }
-}
-
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
-  void *dq, *dk, *dv;
+  void* dq;
   int batch, heads, kv_heads, q_len, k_len, hd;
   float scale;
   int causal;
@@ -389,34 +220,11 @@ cudaError_t launch_dq(const Args& a) {
   return cudaGetLastError();
 }
 
-template <bool kBf16, int D>
-cudaError_t launch_dkv(const Args& a) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  auto kernel = flash_bwd_dkv_kernel<kBf16, D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.k_len + kDkvBlockK - 1) / kDkvBlockK, a.batch * a.kv_heads);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const uint16_t*>(a.q), static_cast<const uint16_t*>(a.k),
-      static_cast<const uint16_t*>(a.v), static_cast<const uint16_t*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<uint16_t*>(a.dk), static_cast<uint16_t*>(a.dv), a.heads, a.kv_heads,
-      a.q_len, a.k_len, a.hd, a.scale, a.causal);
-  return cudaGetLastError();
-}
-
-template <bool kDq, bool kBf16, int D>
-cudaError_t launch(const Args& a) {
-  if constexpr (kDq) return launch_dq<kBf16, D>(a);
-  else return launch_dkv<kBf16, D>(a);
-}
-
-template <bool kDq, bool kBf16>
+template <bool kBf16>
 cudaError_t dispatch_hd(const Args& a) {
-  if (a.hd <= 32) return launch<kDq, kBf16, 32>(a);
-  if (a.hd <= 64) return launch<kDq, kBf16, 64>(a);
-  return launch<kDq, kBf16, 128>(a);
+  if (a.hd <= 32) return launch_dq<kBf16, 32>(a);
+  if (a.hd <= 64) return launch_dq<kBf16, 64>(a);
+  return launch_dq<kBf16, 128>(a);
 }
 
 bool valid(const Args& a) {
@@ -427,25 +235,15 @@ bool valid(const Args& a) {
 
 }  // namespace
 
-// Each returns a cudaError_t: the launch's cudaGetLastError(), or
-// cudaErrorInvalidValue for shapes the kernels do not take (the Python
+// Returns a cudaError_t: the launch's cudaGetLastError(), or
+// cudaErrorInvalidValue for shapes the kernel does not take (the Python
 // wrapper validates first; this is the last line of defence).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, int batch, int heads,
                             int kv_heads, int q_len, int k_len, int head_dim, float scale,
                             int causal, int is_bf16, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, batch, heads, kv_heads,
+  const Args a{q, k, v, dout, lse, delta, dq, batch, heads, kv_heads,
                q_len, k_len, head_dim, scale, causal, static_cast<cudaStream_t>(stream)};
   if (!valid(a)) return (int)cudaErrorInvalidValue;
-  return (int)(is_bf16 ? dispatch_hd<true, true>(a) : dispatch_hd<true, false>(a));
-}
-
-extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                             const void* lse, const void* delta, void* dk, void* dv, int batch,
-                             int heads, int kv_heads, int q_len, int k_len, int head_dim,
-                             float scale, int causal, int is_bf16, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, batch, heads, kv_heads,
-               q_len, k_len, head_dim, scale, causal, static_cast<cudaStream_t>(stream)};
-  if (!valid(a)) return (int)cudaErrorInvalidValue;
-  return (int)(is_bf16 ? dispatch_hd<false, true>(a) : dispatch_hd<false, false>(a));
+  return (int)(is_bf16 ? dispatch_hd<true>(a) : dispatch_hd<false>(a));
 }

@@ -38,6 +38,12 @@ SHAPES = [
     ("bq_gt_bk_ragged_192", (1, 2, 192, 32), (1, 2, 192, 32), True, 128, 64),
     ("cross_length_320x128", (1, 2, 320, 32), (1, 2, 128, 32), True, 64, 64),
     ("cross_length_320x96", (1, 2, 320, 32), (1, 2, 96, 32), True, 64, 64),
+    # The Hopper kernels' 128-row q and 128-key tiles: one past a tile, a
+    # ragged GQA 4:1 pair of lengths, and one short of two tiles.
+    ("causal_129_hd128", (1, 2, 129, 128), (1, 2, 129, 128), True, 64, 64),
+    ("gqa_4to1_noncausal_ragged_200x328_hd128", (1, 4, 200, 128), (1, 1, 328, 128), False,
+     64, 64),
+    ("causal_255_hd64", (1, 2, 255, 64), (1, 2, 255, 64), True, 64, 64),
 ]
 
 
