@@ -10,14 +10,16 @@ Phases, in order; any failure raises and the process exits non-zero:
      own), torch and CUDA versions;
   2. build every kernel library in ``ray_tpu_torch/ops/csrc`` (one nvcc
      per source, all started together), with ptxas's registers, shared
-     memory and spills, and each library's count of wgmma (``HGMMA``) and
-     TMA-load (``UTMALDG``) instructions: the TMA/wgmma kernels
-     (``HOPPER_KERNELS``) must have both;
+     memory and spills, and each library's count of wgmma (``HGMMA``),
+     TMA-load (``UTMALDG``) and ``mma.sync`` (``HMMA``) instructions: every
+     kernel (``HOPPER_KERNELS``) must have the first two and none of the
+     third;
   3. kernel phase: each kernel's wrapper on the card against its plain
      PyTorch version at the shapes the main paths give it (and the CPU
-     test shapes, and the edges of the 128-row tiles), with times, the
-     bound and a library yardstick; dK/dV run twice more at the timed
-     shapes must agree bitwise (no atomics);
+     test shapes, and the edges of the kernels' tiles), with times, the
+     bound and a library yardstick; the dQ kernel's delta against
+     rowsum(dO * O) in torch; dQ and dK/dV run again must agree bitwise
+     (no atomics);
   4. training phase: ``make_train_step`` on the 750M flagship config of
      ``bench.py`` (full width, full depth, remat, batch 12 x 2048, random
      weights and tokens from seeds) for 2 warm-up and 8 timed steps; every
@@ -85,9 +87,10 @@ TRAIN_GRAD_COS_MIN = 0.99
 
 TRAIN_SHAPE_LABEL = "train [12, 18, 2048, 128]"
 GQA_SHAPE_LABEL = "gqa 32q/8kv S=2048"
-# The edges of the forward's 128-row q and 128-key tiles and of the dK/dV
-# kernel's 128-key blocks: (label, b, H, KV, q_len, k_len, hd, causal,
-# dtype, timed), as in the phases below.
+# The edges of the forward's 128-row q and 128-key tiles, of the dK/dV
+# kernel's 128-key blocks and of the dQ kernel's pairs of 128-row q tiles
+# and 64-key tiles: (label, b, H, KV, q_len, k_len, hd, causal, dtype,
+# timed), as in the phases below.
 EDGE_SHAPES = [
     ("causal 129 hd128", 1, 2, 2, 129, 129, 128, True, torch.bfloat16, False),
     ("gqa 4:1 noncausal ragged 200x328 hd128", 1, 4, 1, 200, 328, 128, False, torch.bfloat16,
@@ -95,9 +98,16 @@ EDGE_SHAPES = [
     ("causal 255 hd64", 1, 2, 2, 255, 255, 64, True, torch.bfloat16, False),
     # head_dim 80: the second 64-column box is mostly past hd (zero-filled).
     ("hd80 gqa 2:1 causal 130", 1, 4, 2, 130, 130, 80, True, torch.bfloat16, False),
+    # A pair of 128-row q tiles plus a single; one key past a 64-key tile.
+    ("causal 257 hd128", 1, 2, 2, 257, 257, 128, True, torch.bfloat16, False),
+    ("noncausal 65x65 hd128", 1, 2, 2, 65, 65, 128, False, torch.bfloat16, False),
 ]
-# Kernels redesigned around TMA and wgmma: their SASS must hold both.
-HOPPER_KERNELS = ("flash_fwd", "flash_bwd_dkv")
+# Every kernel is built around TMA and wgmma: its SASS must hold both, and
+# no mma.sync.
+HOPPER_KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_dkv")
+# The dQ kernel's delta against rowsum(dO * O) in torch: fp32 sums of hd
+# products in another order, relative to the largest |delta|.
+DELTA_REL_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -113,14 +123,15 @@ def card_line() -> str:
 
 
 def sass_counts(path: str) -> dict:
-    """``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in a built
-    library's SASS, read with the toolkit's ``cuobjdump``."""
+    """``HGMMA`` (wgmma), ``UTMALDG`` (TMA load) and ``HMMA`` (mma.sync)
+    instructions in a built library's SASS, read with the toolkit's
+    ``cuobjdump``."""
     from ray_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "--dump-sass", path], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "HMMA")}
 
 
 def peaks(name: str):
@@ -153,7 +164,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # fp32 rows ([b*H, q_len]) read or written once.
 _ATTN_WORK = {
     "fwd": (4, 2, 2, 1),  # S, P V; q, o; k, v; lse
-    "dq": (6, 3, 2, 2),   # S, dP, dQ; q, do, dq; k, v; lse, delta
+    "dq": (6, 4, 2, 2),   # S, dP, dQ; q, o, do, dq; k, v; lse, delta
     "dkv": (8, 2, 4, 2),  # S, dP, dV, dK; q, do; k, v, dk, dv; lse, delta
 }
 
@@ -310,18 +321,30 @@ def bwd_kernel_phase(card: str) -> dict:
         (GQA_SHAPE_LABEL, 2, 32, 8, 2048, 2048, 128, True, torch.bfloat16, True),
     ] + EDGE_SHAPES
     rows = []
-    max_abs = {"dq": 0.0, "dkv": 0.0}
+    max_abs = {"dq": 0.0, "dkv": 0.0, "delta": 0.0}
     for label, b, H, KV, ql, kl, hd, causal, dtype, timed in shapes:
         q, do = rand(b, H, ql, hd, dtype=dtype), rand(b, H, ql, hd, dtype=dtype)
         k, v = rand(b, KV, kl, hd, dtype=dtype), rand(b, KV, kl, hd, dtype=dtype)
         scale = hd**-0.5
         o, lse = att.flash_forward_cuda(q, k, v, causal, scale)
         dq, dk, dv = att.flash_backward_cuda(q, k, v, o, lse, do, causal, scale)
+        # dQ run again (twice at the timed shapes) for its delta: dQ sums in
+        # a fixed order (no atomics), so every run is bitwise the same.
+        dq_runs = [att.flash_bwd_dq_cuda(q, k, v, o, lse, do, causal, scale)
+                   for _ in range(2 if timed else 1)]
         torch.cuda.synchronize()
         ref = att.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
                                             do.float(), causal, scale)
-        row = {"shape": label, "rel_tol": GRAD_REL_TOL}
-        ok = True
+        delta = dq_runs[0][1]
+        delta_ref = (do.float() * o.float()).sum(-1)
+        delta_err = (delta - delta_ref).abs().max().item()
+        delta_rel = delta_err / max(delta_ref.abs().max().item(), 1e-30)
+        row = {"shape": label, "rel_tol": GRAD_REL_TOL, "delta_abs_err": delta_err,
+               "delta_rel_err": delta_rel, "delta_rel_tol": DELTA_REL_TOL,
+               "dq_bitwise_repeatable": all(torch.equal(r[0], dq) and torch.equal(r[1], delta)
+                                            for r in dq_runs)}
+        ok = row["dq_bitwise_repeatable"] and delta_rel <= DELTA_REL_TOL
+        max_abs["delta"] = max(max_abs["delta"], delta_err)
         for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
             err = (got.float() - want).abs().max().item()
             rel = err / max(want.abs().max().item(), 1e-30)
@@ -331,15 +354,18 @@ def bwd_kernel_phase(card: str) -> dict:
             key = "dq" if name == "dq" else "dkv"
             max_abs[key] = max(max_abs[key], err)
         if timed:
-            ptrs = (q, k, v, do, lse, (do.float() * o.float()).sum(-1))
+            dkv_args = (q, k, v, do, lse, delta)
             # dK/dV sums in a fixed order (no atomics): bitwise repeatable.
-            runs = [att.flash_bwd_dkv_cuda(*ptrs, causal, scale) for _ in range(2)]
+            runs = [att.flash_bwd_dkv_cuda(*dkv_args, causal, scale) for _ in range(2)]
             row["dkv_bitwise_repeatable"] = all(
                 torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
             ok = ok and row["dkv_bitwise_repeatable"] and all(
                 torch.equal(a, b) for a, b in zip(runs[0], (dk, dv)))
-            row["dq_ms"] = time_ms(lambda: att.flash_bwd_dq_cuda(*ptrs, causal, scale))
-            row["dkv_ms"] = time_ms(lambda: att.flash_bwd_dkv_cuda(*ptrs, causal, scale))
+            row["dq_ms"] = time_ms(lambda: att.flash_bwd_dq_cuda(q, k, v, o, lse, do, causal,
+                                                                 scale))
+            row["dkv_ms"] = time_ms(lambda: att.flash_bwd_dkv_cuda(*dkv_args, causal, scale))
+            # What the dQ kernel's delta replaced: the torch expression.
+            row["delta_torch_ms"] = time_ms(lambda: (do.float() * o.float()).sum(-1))
             row["plain_ms"] = time_ms(lambda: att.flash_attention_bwd_plain(
                 q, k, v, o, lse, do, causal, scale), iters=3, warmup=1)
             row["library_ms"] = sdpa_backward_ms(q, k, v, do, causal, scale)
@@ -747,8 +773,9 @@ def main() -> int:
         log(f"[build]   SASS of {name}: " + json.dumps(sass[name]))
     log(f"[build] all kernel libraries: {time.perf_counter() - t0:.2f} s wall")
     for name in HOPPER_KERNELS:
-        if not all(sass[name].values()):
-            raise AssertionError(f"{name} has no wgmma or no TMA load in its SASS: {sass[name]}")
+        if not (sass[name]["HGMMA"] and sass[name]["UTMALDG"]) or sass[name]["HMMA"]:
+            raise AssertionError(f"{name}: wgmma and TMA loads but no mma.sync expected in its "
+                                 f"SASS: {sass[name]}")
     kern = kernel_phase(card)
     bwd = bwd_kernel_phase(card)
     torch.cuda.empty_cache()
@@ -775,7 +802,15 @@ def main() -> int:
                    btrain["dq_ms"], btrain["plain_ms"],
                    (btrain["dq_bound_ms"], btrain["dq_bound_by"]), btrain["library_ms"],
                    btrain["shape"], smi, sass=sass["flash_bwd"],
-                   note="plain_ms and library_ms cover the whole backward (dq, dk, dv)"),
+                   bitwise_repeatable=btrain["dq_bitwise_repeatable"]
+                   and bgqa["dq_bitwise_repeatable"],
+                   delta_max_abs_err=bwd["max_abs"]["delta"],
+                   delta_torch_ms=btrain["delta_torch_ms"],
+                   gqa_shape=bgqa["shape"], gqa_ms=bgqa["dq_ms"],
+                   gqa_bound_ms=bgqa["dq_bound_ms"], gqa_plain_ms=bgqa["plain_ms"],
+                   gqa_library_ms=bgqa["library_ms"],
+                   note="plain_ms and library_ms cover the whole backward (dq, dk, dv); "
+                        "the kernel also computes delta, which delta_torch_ms timed in torch"),
         kernel_row("flash_bwd_dkv", "ray_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
                    "ray_tpu/ops/attention.py:262", launches["dkv"], bwd["max_abs"]["dkv"],
                    btrain["dkv_ms"], btrain["plain_ms"],

@@ -189,55 +189,61 @@ def flash_forward_cuda(q, k, v, causal: bool, scale: float):
     return o, lse
 
 
-def _check_bwd_inputs(q, k, v, do, lse, delta):
+def _check_bwd_inputs(q, k, v, like_q: dict, rows: dict):
+    """q/k/v as the forward takes them; ``like_q`` tensors of q's shape and
+    dtype and fp32 ``rows`` of ``[b, H, q_len]``, all contiguous and 16-byte
+    aligned on q's device."""
     _check_kernel_inputs(q, k, v)
-    if do.shape != q.shape or do.dtype != q.dtype:
-        raise ValueError(f"flash backward: do{tuple(do.shape)}/{do.dtype} must match "
-                         f"q{tuple(q.shape)}/{q.dtype}")
-    for name, t in (("do", do), ("lse", lse), ("delta", delta)):
-        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash backward: {name} must be a contiguous, 16-byte aligned "
-                             f"tensor on {q.device}")
-    for name, t in (("lse", lse), ("delta", delta)):
+    for name, t in like_q.items():
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"flash backward: {name}{tuple(t.shape)}/{t.dtype} must match "
+                             f"q{tuple(q.shape)}/{q.dtype}")
+    for name, t in rows.items():
         if t.shape != q.shape[:3] or t.dtype != torch.float32:
             raise ValueError(f"flash backward: {name} must be fp32 {tuple(q.shape[:3])}, "
                              f"got {t.dtype} {tuple(t.shape)}")
+    for name, t in {**like_q, **rows}.items():
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash backward: {name} must be a contiguous, 16-byte aligned "
+                             f"tensor on {q.device}")
     if q.shape[2] == 0 or k.shape[2] == 0:
         raise ValueError("flash backward kernels: q_len and k_len must be > 0")
 
 
-def _bwd_args(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """The pointers and shape arguments both backward entry points share."""
+def _bwd_shape_args(q, k, causal: bool, scale: float):
+    """The shape arguments both backward entry points take after their
+    pointers."""
     b, H, q_len, hd = q.shape
     KV, k_len = k.shape[1], k.shape[2]
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr())
-    shape = (b, H, KV, q_len, k_len, hd, float(scale), int(bool(causal)),
-             int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
-    return ptrs, shape
+    return (b, H, KV, q_len, k_len, hd, float(scale), int(bool(causal)),
+            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """Launch the ``sm_90a`` dQ kernel → dq (q's shape and dtype); counts
-    its launches in ``flash_bwd_dq_cuda.launches``. ``delta`` is
-    rowsum(dO∘O) in fp32 (``flash_backward_cuda`` computes it)."""
-    _check_bwd_inputs(q, k, v, do, lse, delta)
+def flash_bwd_dq_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
+    """Launch the ``sm_90a`` dQ kernel → (dq in q's shape and dtype, delta =
+    rowsum(dO∘O) fp32 ``[b, H, q_len]``, which the dK/dV kernel reads);
+    counts its launches in ``flash_bwd_dq_cuda.launches``."""
+    _check_bwd_inputs(q, k, v, {"o": o, "do": do}, {"lse": lse})
     dq = torch.empty_like(q)
-    ptrs, shape = _bwd_args(q, k, v, do, lse, delta, causal, scale)
-    err = _kernel_fn("flash_bwd", "flash_bwd_dq", 7)(*ptrs, dq.data_ptr(), *shape)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    ptrs = (q, k, v, o, do, lse, dq, delta)
+    err = _kernel_fn("flash_bwd", "flash_bwd_dq", len(ptrs))(
+        *(t.data_ptr() for t in ptrs), *_bwd_shape_args(q, k, causal, scale))
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: cudaError {err}")
     flash_bwd_dq_cuda.launches += 1
-    return dq
+    return dq, delta
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
     """Launch the ``sm_90a`` dK/dV kernel → (dk, dv), kv-head shaped;
-    counts its launches in ``flash_bwd_dkv_cuda.launches``."""
-    _check_bwd_inputs(q, k, v, do, lse, delta)
+    counts its launches in ``flash_bwd_dkv_cuda.launches``. ``delta`` is
+    the one ``flash_bwd_dq_cuda`` returns."""
+    _check_bwd_inputs(q, k, v, {"do": do}, {"lse": lse, "delta": delta})
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    ptrs, shape = _bwd_args(q, k, v, do, lse, delta, causal, scale)
-    err = _kernel_fn("flash_bwd_dkv", "flash_bwd_dkv", 8)(*ptrs, dk.data_ptr(), dv.data_ptr(), *shape)
+    ptrs = (q, k, v, do, lse, delta, dk, dv)
+    err = _kernel_fn("flash_bwd_dkv", "flash_bwd_dkv", len(ptrs))(
+        *(t.data_ptr() for t in ptrs), *_bwd_shape_args(q, k, causal, scale))
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv kernel launch failed: cudaError {err}")
     flash_bwd_dkv_cuda.launches += 1
@@ -249,18 +255,14 @@ flash_bwd_dkv_cuda.launches = 0
 
 
 def flash_backward_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
-    """The backward on the card → (dq, dk, dv), dk/dv kv-head shaped:
-    Δ = rowsum(dO∘O) as one torch op (fp32), then the dQ kernel and the
-    dK/dV kernel. Raises on any input the kernels cannot take and on a
-    launch error; never runs the plain version."""
+    """The backward on the card → (dq, dk, dv), dk/dv kv-head shaped: the
+    dQ kernel (which also computes Δ = rowsum(dO∘O)), then the dK/dV
+    kernel. Raises on any input the kernels cannot take and on a launch
+    error; never runs the plain version."""
     _check_kernel_inputs(q, k, v)
-    if o.shape != q.shape or o.dtype != q.dtype or o.device != q.device:
-        raise ValueError(f"flash backward: o{tuple(o.shape)}/{o.dtype} on {o.device} must "
-                         f"match q{tuple(q.shape)}/{q.dtype} on {q.device}")
     if q.shape[2] == 0:
         return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    delta = (do.float() * o.float()).sum(-1)
-    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
+    dq, delta = flash_bwd_dq_cuda(q, k, v, o, lse, do, causal, scale)
     dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
     return dq, dk, dv
 

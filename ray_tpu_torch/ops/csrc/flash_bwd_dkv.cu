@@ -6,7 +6,7 @@
 // the probabilities from the forward's fp32 (natural-log) logsumexp:
 //   P  = exp(scale * Q K^T + mask - lse)       (masked entries underflow to 0)
 //   dP = dO V^T,  dS = P * (dP - delta),  delta = rowsum(dO * O) (fp32,
-//        computed by the wrapper as one torch op)
+//        written by the dQ kernel, flash_bwd.cu, which runs first)
 //   dV = P^T dO,  dK = scale * dS^T Q
 // with the forward's conventions: native GQA by index (K/V never
 // repeated; dK and dV summed over each kv head's group of q heads),

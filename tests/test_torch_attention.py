@@ -44,6 +44,10 @@ SHAPES = [
     ("gqa_4to1_noncausal_ragged_200x328_hd128", (1, 4, 200, 128), (1, 1, 328, 128), False,
      64, 64),
     ("causal_255_hd64", (1, 2, 255, 64), (1, 2, 255, 64), True, 64, 64),
+    # The dQ kernel's pairs of 128-row q tiles (a pair plus a single) and
+    # 64-key tiles (one key past a tile).
+    ("causal_257_hd128", (1, 2, 257, 128), (1, 2, 257, 128), True, 64, 64),
+    ("noncausal_65x65_hd128", (1, 2, 65, 128), (1, 2, 65, 128), False, 64, 64),
 ]
 
 
@@ -195,6 +199,17 @@ def test_backward_kernel_path_rejects_non_cuda_inputs():
     lse = torch.zeros(1, 2, 16)
     with pytest.raises(ValueError, match="CUDA"):
         tatt.flash_backward_cuda(q, q, q, q, lse, q, True, 0.25)
+
+
+def test_dq_kernel_path_rejects_non_cuda_inputs():
+    """The dQ wrapper never quietly runs the plain version and counts no
+    launch."""
+    q = torch.zeros(1, 2, 16, 16, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 16)
+    before = tatt.flash_bwd_dq_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tatt.flash_bwd_dq_cuda(q, q, q, q, lse, q, True, 0.25)
+    assert tatt.flash_bwd_dq_cuda.launches == before
 
 
 @pytest.fixture

@@ -1,7 +1,7 @@
-"""The port stands alone: no module of ray_tpu_torch, and neither
-chip_smoke.py nor chip_ab.py, imports JAX or anything of ray_tpu (the
-machine with the card has no JAX), and importing the package loads
-neither."""
+"""The port stands alone: no module of ray_tpu_torch, and none of
+chip_smoke.py, chip_ab.py and chip_tune_dq.py, imports JAX or anything of
+ray_tpu (the machine with the card has no JAX), and importing the package
+loads neither."""
 import ast
 import os
 import subprocess
@@ -14,7 +14,8 @@ FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
 
 
 def _port_files():
-    files = [os.path.join(REPO_ROOT, name) for name in ("chip_smoke.py", "chip_ab.py")]
+    files = [os.path.join(REPO_ROOT, name)
+             for name in ("chip_smoke.py", "chip_ab.py", "chip_tune_dq.py")]
     for dirpath, _dirnames, filenames in os.walk(os.path.join(REPO_ROOT, "ray_tpu_torch")):
         files += [os.path.join(dirpath, f) for f in filenames if f.endswith(".py")]
     return sorted(files)
@@ -40,7 +41,8 @@ def _forbidden(name):
 
 def test_port_files_are_found():
     files = [os.path.relpath(p, REPO_ROOT) for p in _port_files()]
-    for expected in ("chip_smoke.py", "chip_ab.py", "ray_tpu_torch/ops/attention.py",
+    for expected in ("chip_smoke.py", "chip_ab.py", "chip_tune_dq.py",
+                     "ray_tpu_torch/ops/attention.py",
                      "ray_tpu_torch/serve/llm_engine.py", "ray_tpu_torch/parallel/train_step.py"):
         assert expected in files
 
