@@ -6,7 +6,8 @@
 Runs ``chip_smoke.py --kernels-only`` from the base checkout and from this
 one, alternated (base, change, change, base), so both sides share the card,
 its power limit and its neighbours. Reads every timed ``[kernel]`` row
-(forward ``ms``; backward ``dq_ms``, ``dkv_ms``) and prints, per kernel and
+(forward ``ms``; backward ``dq_ms``, ``dkv_ms``; the general kernels'
+``fwd_ms``, ``dq_ms``, ``dkv_ms``) and prints, per kernel and
 shape, both runs of each side and the change's mean over the base's, and
 the whole table as one JSON object on the last line. Exits non-zero if any
 run fails.
@@ -37,7 +38,10 @@ def parse(lines) -> dict:
     times = {}
     for line in lines:
         for prefix, keys in (("[kernel] flash_fwd ", {"ms": "fwd"}),
-                             ("[kernel] flash_bwd ", {"dq_ms": "dq", "dkv_ms": "dkv"})):
+                             ("[kernel] flash_bwd ", {"dq_ms": "dq", "dkv_ms": "dkv"}),
+                             ("[kernel] flash_general ", {"fwd_ms": "general_fwd",
+                                                          "dq_ms": "general_dq",
+                                                          "dkv_ms": "general_dkv"})):
             if line.startswith(prefix) and ": {" in line:
                 shape, row = line[len(prefix):].split(": ", 1)
                 row = json.loads(row)
@@ -67,7 +71,7 @@ def main() -> int:
         if None not in b and None not in c:
             row["change_over_base"] = sum(c) / sum(b)
         table.append(row)
-        print(f"[ab] {key[0]:>4} {key[1]:<28} base {b} change {c} "
+        print(f"[ab] {key[0]:>11} {key[1]:<28} base {b} change {c} "
               f"ratio {row.get('change_over_base')}", flush=True)
     print(json.dumps({"card": card, "order": [s for s, _ in order], "rows": table}), flush=True)
     return 0

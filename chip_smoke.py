@@ -2,7 +2,7 @@
 their plain versions.
 
     python3 chip_smoke.py                 # every phase (one card)
-    python3 chip_smoke.py --kernels-only  # build + kernel phase only
+    python3 chip_smoke.py --kernels-only  # build + kernel phases only
     python3 chip_smoke.py --profile       # also torch.profiler breakdowns
 
 Phases, in order; any failure raises and the process exits non-zero:
@@ -12,25 +12,37 @@ Phases, in order; any failure raises and the process exits non-zero:
      per source, all started together), with ptxas's registers, shared
      memory and spills, and each library's count of wgmma (``HGMMA``),
      TMA-load (``UTMALDG``) and ``mma.sync`` (``HMMA``) instructions: every
-     kernel (``HOPPER_KERNELS``) must have the first two and none of the
-     third;
-  3. kernel phase: each kernel's wrapper on the card against its plain
-     PyTorch version at the shapes the main paths give it (and the CPU
-     test shapes, and the edges of the kernels' tiles), with times, the
+     Hopper kernel (``HOPPER_KERNELS``) must have the first two and none of
+     the third (``flash_general`` is SIMT: its counts are printed only);
+  3. kernel phase: each Hopper kernel's wrapper on the card against its
+     plain PyTorch version at the shapes the main paths give it (and the
+     CPU test shapes, and the edges of the kernels' tiles), with times, the
      bound and a library yardstick; the dQ kernel's delta against
      rowsum(dO * O) in torch; dQ and dK/dV run again must agree bitwise
-     (no atomics);
-  4. training phase: ``make_train_step`` on the 750M flagship config of
+     (no atomics); inputs no kernel takes (head dim 264, a non-contiguous
+     dO, a bf16 lse) raise;
+  4. general-kernel phase: the three kernels of ``csrc/flash_general.cu``
+     against their plain versions at fp32 GQA, bf16 head dim 256, fp16
+     head dim 72 cross-length and b*H = 65,600 (where the Hopper kernels
+     run too), with times, bounds, plain and SDPA times;
+  5. training phase: ``make_train_step`` on the 750M flagship config of
      ``bench.py`` (full width, full depth, remat, batch 12 x 2048, random
-     weights and tokens from seeds) for 2 warm-up and 8 timed steps; every
-     step launches flash_fwd 2 x 10 times (forward + remat recompute) and
-     each backward kernel 10 times, and the loss falls;
-  5. full-width gradient check: loss and every gradient of the 750M model
+     weights and tokens from seeds) under each remat policy ("full",
+     "dots", "attn") for 2 warm-up and 8 timed steps from the same
+     weights; every step launches flash_fwd 20 times under "full" and
+     "dots" (forward + recompute) and 10 under "attn", each backward
+     kernel 10 times and no general kernel; the loss falls, and each
+     policy's losses match "full"'s;
+  6. fp32 training: a 2-layer fp32 model trains a few steps through the
+     general kernels (and no Hopper kernel), and its loss and gradients
+     match the same model through plain attention;
+  7. full-width gradient check: loss and every gradient of the 750M model
      through the kernels against the same model through plain attention;
-  6. serving phase: ``LLMEngine`` serving llama7b (bf16, full width, random
+  8. serving phase: ``LLMEngine`` serving llama7b (bf16, full width, random
      weights from a seed) through the paged engine, then a shared-prefix
      pass and a chunked-prefill pass; the forward kernel's launch counter
-     must equal 32 x the full-prompt prefills, and full-width prefill
+     must equal 32 x the full-prompt prefills (no general kernel runs),
+     and full-width prefill
      logits through the kernel must match the same forward through the
      plain version.
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -50,13 +62,14 @@ import time
 
 import torch
 
-# Published dense peaks (NVIDIA data sheets): bf16/fp16 tensor-core FLOP/s
-# and device-memory bytes/s, by the name torch reports.
+# Published dense peaks (NVIDIA data sheets): bf16/fp16 tensor-core FLOP/s,
+# device-memory bytes/s and fp32 (non-tensor) FLOP/s, by the name torch
+# reports.
 _PEAKS = (
-    ("H100 PCIe", 756e12, 2.0e12),
-    ("H100 NVL", 835e12, 3.9e12),
-    ("H200", 989e12, 4.8e12),
-    ("H100", 989e12, 3.35e12),
+    ("H100 PCIe", 756e12, 2.0e12, 51e12),
+    ("H100 NVL", 835e12, 3.9e12, 60e12),
+    ("H200", 989e12, 4.8e12, 67e12),
+    ("H100", 989e12, 3.35e12, 67e12),
 )
 
 # Kernel tolerances, kernel (bf16 in, bf16 out, P rounded to bf16 for the
@@ -134,10 +147,12 @@ def sass_counts(path: str) -> dict:
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "HMMA")}
 
 
-def peaks(name: str):
-    for key, flops, bw in _PEAKS:
+def peaks(name: str, fp32: bool = False):
+    """(FLOP/s, bytes/s): the tensor-core bf16/fp16 rate, or with ``fp32``
+    the fp32 FMA rate."""
+    for key, flops, bw, flops32 in _PEAKS:
         if key in name:
-            return flops, bw
+            return (flops32 if fp32 else flops), bw
     raise RuntimeError(f"no published peaks for card {name!r}")
 
 
@@ -170,10 +185,12 @@ _ATTN_WORK = {
 
 
 def attention_bound_ms(b, H, KV, q_len, k_len, hd, causal, elem_bytes, card, kind="fwd"):
-    """Least time for the work: max(bytes / memory rate, FLOPs / bf16 peak).
-    FLOPs: the kernel's products, 2*hd each, per (query, key) pair this
-    causal mask keeps; bytes: each input and output once (``_ATTN_WORK``)."""
-    flops_peak, bw = peaks(card)
+    """Least time for the work: max(bytes / memory rate, FLOPs / peak), the
+    peak of the inputs' type (fp32 FMAs for 4-byte elements, the tensor
+    cores for bf16/fp16). FLOPs: the kernel's products, 2*hd each, per
+    (query, key) pair this causal mask keeps; bytes: each input and output
+    once (``_ATTN_WORK``)."""
+    flops_peak, bw = peaks(card, fp32=elem_bytes == 4)
     per_pair, n_q, n_kv, n_rows = _ATTN_WORK[kind]
     if causal:
         pairs = sum(min(i + 1, k_len) for i in range(q_len))
@@ -254,9 +271,9 @@ def kernel_phase(card: str) -> dict:
     if not torch.equal(o1[:, :, :100], o2[:, :, :100]):
         raise AssertionError("flash_fwd: future keys changed earlier rows")
     log("[kernel] flash_fwd causal no-leak check: exact")
-    # A CUDA input the kernel cannot take raises; it never falls back.
-    for bad in (lambda: att.flash_attention(q.float(), k.float(), v.float()),
-                lambda: att.flash_attention(rand(1, 2, 8, 24), rand(1, 2, 8, 24), rand(1, 2, 8, 24)),
+    # A CUDA input no kernel takes raises; it never falls back. (fp32, head
+    # dims off the Hopper grid and scale <= 0 take the general route.)
+    for bad in (lambda: att.flash_attention(*(rand(1, 2, 8, 264) for _ in range(3))),
                 lambda: att.flash_forward_cuda(q, k, v, True, -0.125)):
         try:
             bad()
@@ -384,19 +401,18 @@ def bwd_kernel_phase(card: str) -> dict:
             and torch.equal(dv[:, :, 64:], torch.zeros_like(dv[:, :, 64:]))):
         raise AssertionError("flash_bwd: keys past every query got a gradient")
     log("[kernel] flash_bwd unreached keys: exactly zero")
-    # A CUDA input the kernels cannot take raises; it never falls back.
+    # A CUDA input no kernel takes raises, through the routed backward op;
+    # it never falls back.
     q, k, v = rand(1, 2, 64, 32), rand(1, 2, 64, 32), rand(1, 2, 64, 32)
     o, lse = att.flash_forward_cuda(q, k, v, True, 0.125)
     bad_inputs = (
-        ("fp32 inputs", lambda: att.flash_backward_cuda(
-            q.float(), k.float(), v.float(), o.float(), lse, o.float(), True, 0.125)),
-        ("non-contiguous do", lambda: att.flash_backward_cuda(
+        ("non-contiguous do", lambda: att.flash_bwd(
             q, k, v, o, lse, torch.empty_like(o).transpose(2, 3).contiguous().transpose(2, 3),
             True, 0.125)),
-        ("bf16 lse", lambda: att.flash_backward_cuda(q, k, v, o, lse.bfloat16(), o, True, 0.125)),
-        ("head_dim 24", lambda: att.flash_backward_cuda(
-            *(rand(1, 2, 8, 24) for _ in range(4)), torch.zeros(1, 2, 8, device=dev),
-            rand(1, 2, 8, 24), True, 0.125)),
+        ("bf16 lse", lambda: att.flash_bwd(q, k, v, o, lse.bfloat16(), o, True, 0.125)),
+        ("head_dim 264", lambda: att.flash_bwd(
+            *(rand(1, 2, 8, 264) for _ in range(4)), torch.zeros(1, 2, 8, device=dev),
+            rand(1, 2, 8, 264), True, 0.125)),
     )
     for what, bad in bad_inputs:
         try:
@@ -404,10 +420,136 @@ def bwd_kernel_phase(card: str) -> dict:
         except (TypeError, ValueError) as e:
             log(f"[kernel] flash_bwd rejected {what} as expected: {e}")
         else:
-            raise AssertionError(f"flash_backward_cuda accepted {what}")
+            raise AssertionError(f"flash_bwd accepted {what}")
     train = next(r for r in rows if r["shape"] == TRAIN_SHAPE_LABEL)
     gqa = next(r for r in rows if r["shape"] == GQA_SHAPE_LABEL)
     return {"rows": rows, "max_abs": max_abs, "train": train, "gqa": gqa}
+
+
+# The general kernels against their plain versions on the same inputs: both
+# sides compute in fp32 and round the output once, so o differs by half an
+# ulp of its type plus fp32 summation noise. fp32: 2e-4 absolute on o and
+# lse; bf16/fp16: o within 1e-2 of max(1, |o|) (half a bf16 ulp is 2^-9 of
+# |o|), lse (fp32) within 2e-4; gradients within 2% of the largest value.
+GENERAL_O_TOL_FP32 = 2e-4
+GENERAL_O_TOL_16 = 1e-2
+GENERAL_LSE_TOL = 2e-4
+GENERAL_HEAD_LABEL = "bf16 [1, 16/16, 2048, 256] causal"
+# (label, b, H, KV, q_len, k_len, hd, causal, dtype, route): the head shape
+# of Gemma-7B's public config is the headline; at b*H = 65,600 the Hopper
+# kernels run too (their grid is one-dimensional).
+GENERAL_SHAPES = [
+    ("fp32 gqa [2, 8/2, 1024, 64] causal", 2, 8, 2, 1024, 1024, 64, True, torch.float32,
+     "general"),
+    (GENERAL_HEAD_LABEL, 1, 16, 16, 2048, 2048, 256, True, torch.bfloat16, "general"),
+    ("fp16 [1, 4/2, 300, 72] x k_len 500 noncausal", 1, 4, 2, 300, 500, 72, False,
+     torch.float16, "general"),
+    ("bf16 [4100, 16/16, 16, 64] causal (b*H 65600)", 4100, 16, 16, 16, 16, 64, True,
+     torch.bfloat16, "hopper"),
+]
+
+
+def library_ms(fn):
+    """A library call's time, or None where the library refuses the input."""
+    try:
+        return fn()
+    except RuntimeError as e:
+        log(f"[kernel] library yardstick refused: {str(e).splitlines()[0][:160]}")
+        return None
+
+
+def _fwd_errors(o, lse, o_ref, lse_ref):
+    """(o error as the tolerance reads it, o max abs error, lse max abs error)."""
+    diff = (o.float() - o_ref).abs()
+    o_err = diff if o.dtype == torch.float32 else diff / o_ref.abs().clamp_min(1.0)
+    return o_err.max().item(), diff.max().item(), (lse - lse_ref).abs().max().item()
+
+
+def general_kernel_phase(card: str) -> dict:
+    """The general forward, dQ and dK/dV kernels against
+    ``flash_attention_plain`` / ``flash_attention_bwd_plain`` at
+    ``GENERAL_SHAPES``, with times, bounds (fp32 FMA peak for fp32 inputs,
+    tensor-core peak for bf16/fp16), plain and SDPA times; the route each
+    shape takes; and the Hopper kernels at b*H = 65,600."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention as att
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def rand(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    rows = []
+    max_abs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for label, b, H, KV, ql, kl, hd, causal, dtype, route in GENERAL_SHAPES:
+        q, do = rand(b, H, ql, hd, dtype=dtype), rand(b, H, ql, hd, dtype=dtype)
+        k, v = rand(b, KV, kl, hd, dtype=dtype), rand(b, KV, kl, hd, dtype=dtype)
+        scale = hd**-0.5
+        got_route = att._kernel_route(q, k, scale)
+        o, lse = att.flash_general_forward_cuda(q, k, v, causal, scale)
+        grads = att.flash_general_backward_cuda(q, k, v, o, lse, do, causal, scale)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = att.flash_attention_plain(q.float(), k.float(), v.float(), causal, scale)
+        ref = att.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                            do.float(), causal, scale)
+        o_tol = GENERAL_O_TOL_FP32 if dtype == torch.float32 else GENERAL_O_TOL_16
+        o_err, o_abs, lse_err = _fwd_errors(o, lse, o_ref, lse_ref)
+        row = {"shape": label, "dtype": str(dtype).split(".")[-1], "route": got_route,
+               "o_err": o_err, "o_abs_err": o_abs, "o_tol": o_tol, "lse_err": lse_err,
+               "lse_tol": GENERAL_LSE_TOL, "grad_rel_tol": GRAD_REL_TOL}
+        ok = (got_route == route and bool(torch.isfinite(o).all())
+              and bool(torch.isfinite(lse).all()) and o_err <= o_tol
+              and lse_err <= GENERAL_LSE_TOL)
+        max_abs["fwd"] = max(max_abs["fwd"], o_abs)
+        for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+            err = (got.float() - want).abs().max().item()
+            row[f"{name}_abs_err"] = err
+            row[f"{name}_rel_err"] = err / max(want.abs().max().item(), 1e-30)
+            ok = ok and bool(torch.isfinite(got).all()) and got.shape == want.shape and (
+                row[f"{name}_rel_err"] <= GRAD_REL_TOL)
+            key = "dq" if name == "dq" else "dkv"
+            max_abs[key] = max(max_abs[key], err)
+        delta = att.flash_general_dq_cuda(q, k, v, o, lse, do, causal, scale)[1]
+        row["fwd_ms"] = time_ms(lambda: att.flash_general_forward_cuda(q, k, v, causal, scale))
+        row["dq_ms"] = time_ms(lambda: att.flash_general_dq_cuda(q, k, v, o, lse, do, causal,
+                                                                 scale))
+        row["dkv_ms"] = time_ms(lambda: att.flash_general_dkv_cuda(q, k, v, do, lse, delta,
+                                                                   causal, scale))
+        row["plain_fwd_ms"] = time_ms(lambda: att.flash_attention_plain(q, k, v, causal, scale),
+                                      iters=3, warmup=1)
+        row["plain_bwd_ms"] = time_ms(lambda: att.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal, scale), iters=3, warmup=1)
+        row["library_fwd_ms"] = library_ms(lambda: time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, scale=scale, enable_gqa=H != KV)))
+        row["library_bwd_ms"] = library_ms(lambda: sdpa_backward_ms(q, k, v, do, causal, scale))
+        for kind in ("fwd", "dq", "dkv"):
+            row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = attention_bound_ms(
+                b, H, KV, ql, kl, hd, causal, q.element_size(), card, kind)
+        if route == "hopper":
+            o_h, lse_h = att.flash_forward_cuda(q, k, v, causal, scale)
+            grads_h = att.flash_backward_cuda(q, k, v, o_h, lse_h, do, causal, scale)
+            torch.cuda.synchronize()
+            h_err, h_abs, h_lse = _fwd_errors(o_h, lse_h, o_ref, lse_ref)
+            ref_h = att.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o_h.float(),
+                                                  lse_h, do.float(), causal, scale)
+            h_rel = [(g.float() - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+                     for g, w in zip(grads_h, ref_h)]
+            row["hopper"] = {"o_err": h_err, "o_abs_err": h_abs, "o_tol": O_TOL,
+                             "lse_err": h_lse, "lse_tol": LSE_TOL, "grad_rel_errs": h_rel,
+                             "fwd_ms": time_ms(lambda: att.flash_forward_cuda(q, k, v, causal,
+                                                                              scale))}
+            ok = ok and h_err <= O_TOL and h_lse <= LSE_TOL and max(h_rel) <= GRAD_REL_TOL
+        log(f"[kernel] flash_general {label} on {card}: " + json.dumps(row))
+        if not ok:
+            raise AssertionError(f"flash_general disagrees with its plain version at {label}: "
+                                 f"{row}")
+        rows.append(row)
+        del q, k, v, do, o, lse, grads, o_ref, lse_ref, ref
+        torch.cuda.empty_cache()
+    head = next(r for r in rows if r["shape"] == GENERAL_HEAD_LABEL)
+    return {"rows": rows, "max_abs": max_abs, "head": head}
 
 
 def profile_pass(eng, prompts, n_new, label: str, card: str) -> dict:
@@ -415,28 +557,36 @@ def profile_pass(eng, prompts, n_new, label: str, card: str) -> dict:
     return profile_step(lambda: eng.generate_batch(prompts, n_new), label, card)
 
 
-def train_config():
+def train_config(remat_policy: str = "full"):
     """The 750M flagship config of ``bench.py:67-77``: full width, full depth."""
     from ray_tpu_torch.models import transformer as tf
 
     return tf.TransformerConfig(vocab_size=32000, d_model=2304, n_layers=10, n_heads=18,
                                 n_kv_heads=18, d_ff=5760, max_seq_len=2048,
-                                dtype=torch.bfloat16, remat=True)
+                                dtype=torch.bfloat16, remat=True, remat_policy=remat_policy)
+
+
+def _counted():
+    """Every kernel wrapper's launch counter, by the key the phases use."""
+    from ray_tpu_torch.ops import attention as att
+
+    return {"fwd": att.flash_attention, "dq": att.flash_bwd_dq_cuda,
+            "dkv": att.flash_bwd_dkv_cuda, "general_fwd": att.flash_general_forward_cuda,
+            "general_dq": att.flash_general_dq_cuda, "general_dkv": att.flash_general_dkv_cuda}
 
 
 def launch_counts():
-    from ray_tpu_torch.ops import attention as att
-
-    return {"fwd": att.flash_attention.launches, "dq": att.flash_bwd_dq_cuda.launches,
-            "dkv": att.flash_bwd_dkv_cuda.launches}
+    return {key: fn.launches for key, fn in _counted().items()}
 
 
 def reset_launch_counts():
-    from ray_tpu_torch.ops import attention as att
+    for fn in _counted().values():
+        fn.launches = 0
 
-    att.flash_attention.launches = 0
-    att.flash_bwd_dq_cuda.launches = 0
-    att.flash_bwd_dkv_cuda.launches = 0
+
+def no_general(per_step: dict) -> dict:
+    """``per_step`` Hopper launches and no general ones."""
+    return {**per_step, "general_fwd": 0, "general_dq": 0, "general_dkv": 0}
 
 
 def profile_step(fn, label: str, card: str) -> dict:
@@ -476,16 +626,25 @@ def profile_step(fn, label: str, card: str) -> dict:
     return out
 
 
-def training_phase(card: str, smi: str, profile: bool = False) -> dict:
-    """``make_train_step`` on the 750M config, batch 12 x 2048, 2 warm-up
-    and 8 timed steps, with the exact launch counts of every step."""
+# Each selective policy's losses against "full"'s, step by step, relative:
+# the policies compute the same numbers (a saved product is the one the
+# recompute would give), so only a change in summation order could move them.
+POLICY_LOSS_REL_TOL = 1e-3
+
+
+def training_phase(card: str, smi: str, policy: str = "full", profile: bool = False) -> dict:
+    """``make_train_step`` on the 750M config under remat ``policy``, batch
+    12 x 2048, 2 warm-up and 8 timed steps, with the exact launch counts of
+    every step (20/10/10 Hopper launches under "full" and "dots", 10/10/10
+    under "attn", no general launch)."""
     from ray_tpu_torch.models import transformer as tf
     from ray_tpu_torch.parallel import make_optimizer, make_train_state, make_train_step
     from ray_tpu_torch.parallel.train_step import param_leaves
 
     dev = torch.device("cuda")
-    cfg = train_config()
+    cfg = train_config(policy)
     batch_size, seq, warmup, steps = 12, 2048, 2, 8
+    torch.cuda.empty_cache()
     opt = make_optimizer(lr=3e-4, warmup=10)
     torch.cuda.reset_peak_memory_stats()
     params, opt_state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -497,7 +656,8 @@ def training_phase(card: str, smi: str, profile: bool = False) -> dict:
                            generator=torch.Generator(device=dev).manual_seed(1))
     batch = {"tokens": tokens}
     step = make_train_step(cfg, opt)
-    per_step = {"fwd": 2 * cfg.n_layers, "dq": cfg.n_layers, "dkv": cfg.n_layers}
+    per_step = no_general({"fwd": (1 if policy == "attn" else 2) * cfg.n_layers,
+                           "dq": cfg.n_layers, "dkv": cfg.n_layers})
     losses, gnorms, step_s = [], [], []
     reset_launch_counts()
     for i in range(warmup + steps):
@@ -513,7 +673,7 @@ def training_phase(card: str, smi: str, profile: bool = False) -> dict:
         got = {k: after[k] - before[k] for k in after}
         if got != per_step:
             raise AssertionError(f"step {i}: launches {got} != {per_step}")
-        log(f"[train] step {i}: loss {loss:.6f} grad_norm {gnorm:.6f} "
+        log(f"[train] {policy} step {i}: loss {loss:.6f} grad_norm {gnorm:.6f} "
             f"{step_s[-1] * 1e3:.1f} ms launches {got}")
     launches = launch_counts()
     if not all(math.isfinite(x) for x in losses + gnorms):
@@ -526,7 +686,8 @@ def training_phase(card: str, smi: str, profile: bool = False) -> dict:
     tokens_per_step = batch_size * seq
     result = {
         "config": "750M flagship (bench.py): vocab 32000, d_model 2304, 10 layers, 18 heads, "
-                  "18 kv heads, d_ff 5760, bf16 compute, fp32 params + AdamW, remat full",
+                  f"18 kv heads, d_ff 5760, bf16 compute, fp32 params + AdamW, remat {policy}",
+        "remat_policy": policy,
         "params": n_params, "batch": batch_size, "seq": seq, "steps_timed": steps,
         "step_ms_mean": mean_s * 1e3, "step_ms_min": min(timed) * 1e3,
         "step_ms_max": max(timed) * 1e3,
@@ -537,10 +698,10 @@ def training_phase(card: str, smi: str, profile: bool = False) -> dict:
         "losses": losses, "grad_norms": gnorms, "launches": launches,
         "launches_per_step": per_step, "card": smi,
     }
-    log(f"[train] on {card}: " + json.dumps(result))
+    log(f"[train] {policy} on {card}: " + json.dumps(result))
     if profile:
-        result["profile"] = profile_step(lambda: step(params, opt_state, batch), "train step",
-                                         card)
+        result["profile"] = profile_step(lambda: step(params, opt_state, batch),
+                                         f"train step ({policy})", card)
     del params, opt_state, batch, step
     torch.cuda.empty_cache()
     return result
@@ -599,6 +760,77 @@ def grad_check_phase(card: str) -> dict:
     return result
 
 
+# fp32 model, kernels (general route) vs plain attention: fp32 on both sides
+# (TF32 off), sums in another order through 2 layers; relative errors of
+# ~1e-6 are expected, so 1e-5 on the loss and 1e-3 of each gradient's
+# largest value.
+FP32_LOSS_REL_TOL = 1e-5
+FP32_GRAD_REL_TOL = 1e-3
+
+
+def fp32_training_phase(card: str) -> dict:
+    """A 2-layer fp32 model (d_model 512, 8 q / 4 kv heads, remat "full")
+    trains 3 steps through ``make_train_step``: every step launches each
+    general kernel (forward 2 x 2, dQ 2, dK/dV 2) and no Hopper kernel. Then
+    its loss and every gradient through the kernels against the same model
+    through plain attention."""
+    from ray_tpu_torch.models import transformer as tf
+    from ray_tpu_torch.ops import attention as att
+    from ray_tpu_torch.parallel import make_optimizer, make_train_state, make_train_step
+    from ray_tpu_torch.parallel.train_step import param_leaves
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("fp32 matmuls must run in fp32 (TF32 is on)")
+    dev = torch.device("cuda")
+    cfg = tf.TransformerConfig(vocab_size=32000, d_model=512, n_layers=2, n_heads=8,
+                               n_kv_heads=4, d_ff=1536, max_seq_len=512, dtype=torch.float32,
+                               remat=True)
+    opt = make_optimizer(lr=3e-4, warmup=2)
+    params, opt_state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(10),
+                                         device=dev, optimizer=opt)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 513), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(11))
+    step = make_train_step(cfg, opt)
+    L, steps = cfg.n_layers, 3
+    reset_launch_counts()
+    losses = []
+    for _ in range(steps):
+        params, opt_state, m = step(params, opt_state, {"tokens": tokens})
+        losses.append(float(m["loss"]))
+    launches = launch_counts()
+    want = {"fwd": 0, "dq": 0, "dkv": 0, "general_fwd": 2 * L * steps, "general_dq": L * steps,
+            "general_dkv": L * steps}
+    if launches != want:
+        raise AssertionError(f"fp32 training launches {launches} != {want}")
+
+    def plain_attn(q, k, v):
+        return att.flash_attention_plain(q, k, v, True, q.shape[-1] ** -0.5)[0]
+
+    plain_attn.supports_gqa = True
+    leaves = param_leaves(params)
+
+    def loss_and_grads(attn_fn):
+        loss = tf.loss_fn(params, {"tokens": tokens}, cfg, attn_fn)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    lk, gk = loss_and_grads(None)
+    lp, gp = loss_and_grads(plain_attn)
+    rel = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30) for a, b in zip(gk, gp)]
+    result = {"config": "fp32, vocab 32000, d_model 512, 2 layers, 8 q / 4 kv heads (head dim "
+                        "64), d_ff 1536, batch 4 x 512, remat full",
+              "losses": losses, "launches": launches, "loss_kernel": lk, "loss_plain": lp,
+              "loss_rel_err": abs(lk - lp) / abs(lp), "grad_rel_err_max": max(rel),
+              "loss_rel_tol": FP32_LOSS_REL_TOL, "grad_rel_tol": FP32_GRAD_REL_TOL}
+    log(f"[train fp32] general route on {card}: " + json.dumps(result))
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and result["loss_rel_err"] <= FP32_LOSS_REL_TOL
+            and max(rel) <= FP32_GRAD_REL_TOL):
+        raise AssertionError(f"fp32 training through the general kernels: {result}")
+    del params, opt_state, leaves, gk, gp
+    torch.cuda.empty_cache()
+    return result
+
+
 def slice_phase(card: str, profile: bool = False) -> dict:
     from ray_tpu_torch.models import transformer as tf
     from ray_tpu_torch.models.paged import PagedConfig
@@ -636,16 +868,19 @@ def slice_phase(card: str, profile: bool = False) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = dict(eng.stats)
-    att.flash_attention.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     outs = eng.generate_batch(prompts, n_new)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = att.flash_attention.launches
+    counts = launch_counts()
+    launches = counts["fwd"]
     full = eng.stats["full_prefills"] - base["full_prefills"]
     check_outputs(outs, n_new)
-    if full < len(prompts) or launches != cfg.n_layers * full:
-        raise AssertionError(f"launches {launches} != {cfg.n_layers} x {full} full prefills")
+    if full < len(prompts) or counts != no_general({"fwd": cfg.n_layers * full, "dq": 0,
+                                                    "dkv": 0}):
+        raise AssertionError(f"launches {counts}: expected {cfg.n_layers} x {full} full "
+                             "prefills and no general launch")
     lat = eng.recorder.latency_summary()
     result["main"] = {
         "requests": len(prompts), "new_tokens": n_new, "prompt_lens": lens,
@@ -746,7 +981,7 @@ def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms, boun
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernels-only", action="store_true", help="build + kernel phase only")
+    ap.add_argument("--kernels-only", action="store_true", help="build + kernel phases only")
     ap.add_argument("--profile", action="store_true",
                     help="also profile a training step, a prefill and a decode pass")
     args = ap.parse_args()
@@ -778,16 +1013,51 @@ def main() -> int:
                                  f"SASS: {sass[name]}")
     kern = kernel_phase(card)
     bwd = bwd_kernel_phase(card)
+    gen = general_kernel_phase(card)
     torch.cuda.empty_cache()
-    launches = {"fwd": None, "dq": None, "dkv": None}
-    serving_launches = None
+    launches = {key: None for key in _counted()}
+    serving_launches = general_launches = None
+    by_policy = {}
     if not args.kernels_only:
-        tr = training_phase(card, smi, profile=args.profile)
-        launches = tr["launches"]
+        runs = {policy: training_phase(card, smi, policy, profile=args.profile)
+                for policy in ("full", "dots", "attn")}
+        full_losses = runs["full"]["losses"]
+        for policy, run in runs.items():
+            diff = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], full_losses))
+            by_policy[policy] = {
+                key: run[key] for key in ("step_ms_mean", "step_ms_min", "step_ms_max",
+                                          "tokens_per_s", "mfu", "peak_mem_gb",
+                                          "launches_per_step")}
+            by_policy[policy]["loss_max_rel_diff_vs_full"] = diff
+            if diff > POLICY_LOSS_REL_TOL:
+                raise AssertionError(f"{policy} losses {run['losses']} differ from full's "
+                                     f"{full_losses} by {diff} > {POLICY_LOSS_REL_TOL}")
+        log(f"[train] remat policies on {smi}: " + json.dumps(by_policy))
+        launches = runs["full"]["launches"]
+        general_launches = fp32_training_phase(card)["launches"]
         grad_check_phase(card)
         sl = slice_phase(card, profile=args.profile)
         serving_launches = sl["main"]["flash_fwd_launches"]
     head, ftrain, btrain, bgqa = kern["head"], kern["train"], bwd["train"], bwd["gqa"]
+    ghead = gen["head"]
+    general_note = ("launches: the fp32 training run (the general route's main path); "
+                    "plain_ms and library_ms of dq and dkv cover the whole backward")
+    general_rows = [
+        kernel_row(f"flash_general_{kind}", "ray_tpu_torch/ops/csrc/flash_general.cu",
+                   f"ray_tpu/ops/attention.py:{line}",
+                   None if general_launches is None else general_launches[f"general_{kind}"],
+                   gen["max_abs"][kind], ghead[f"{kind}_ms"],
+                   ghead["plain_fwd_ms" if kind == "fwd" else "plain_bwd_ms"],
+                   (ghead[f"{kind}_bound_ms"], ghead[f"{kind}_bound_by"]),
+                   ghead["library_fwd_ms" if kind == "fwd" else "library_bwd_ms"],
+                   ghead["shape"], smi, sass=sass["flash_general"], note=general_note,
+                   shapes=[{"shape": r["shape"], "ms": r[f"{kind}_ms"],
+                            "bound_ms": r[f"{kind}_bound_ms"],
+                            "plain_ms": r["plain_fwd_ms" if kind == "fwd" else "plain_bwd_ms"],
+                            "library_ms": r["library_fwd_ms" if kind == "fwd"
+                                            else "library_bwd_ms"]} for r in gen["rows"]])
+        for kind, line in (("fwd", 56), ("dq", 201), ("dkv", 262))]
+    by_policy_launches = {policy: row["launches_per_step"] for policy, row in by_policy.items()}
     kernels = [
         kernel_row("flash_fwd", "ray_tpu_torch/ops/csrc/flash_fwd.cu",
                    "ray_tpu/ops/attention.py:56", launches["fwd"], kern["max_err"],
@@ -796,7 +1066,7 @@ def main() -> int:
                    serving_launches=serving_launches, serving_shape=head["shape"],
                    serving_ms=head["ms"], serving_plain_ms=head["plain_ms"],
                    serving_bound_ms=head["bound_ms"], serving_library_ms=head["library_ms"],
-                   sass=sass["flash_fwd"]),
+                   launches_per_step_by_policy=by_policy_launches, sass=sass["flash_fwd"]),
         kernel_row("flash_bwd_dq", "ray_tpu_torch/ops/csrc/flash_bwd.cu",
                    "ray_tpu/ops/attention.py:201", launches["dq"], bwd["max_abs"]["dq"],
                    btrain["dq_ms"], btrain["plain_ms"],
@@ -822,7 +1092,7 @@ def main() -> int:
                    gqa_bound_ms=bgqa["dkv_bound_ms"], gqa_plain_ms=bgqa["plain_ms"],
                    gqa_library_ms=bgqa["library_ms"],
                    note="plain_ms and library_ms cover the whole backward (dq, dk, dv)"),
-    ]
+    ] + general_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}), flush=True)

@@ -7,20 +7,28 @@ on a leading ``[n_layers]`` axis and projections are ``[in, out]``
 (``h @ w``), so ``models/convert.py`` moves a JAX tree over without a
 transpose. ``decoder_stack`` is a Python loop over the stacked layers
 (the JAX ``lax.scan``), each layer wrapped in
-``torch.utils.checkpoint`` under ``remat`` (the JAX ``jax.checkpoint``).
+``torch.utils.checkpoint`` under ``remat`` (the JAX ``jax.checkpoint``),
+with the reference's three policies: "full", and the selective "dots"
+and "attn" (``create_selective_checkpoint_contexts``).
 
 Attention runs through ``ray_tpu_torch.ops.attention.flash_attention``
-(the Hopper kernels on CUDA tensors, forward and backward). The MLP is
-dense or Mixtral-style top-k MoE with dense dispatch.
+(the custom op ``ray_tpu_torch::flash_fwd`` and its backward; hand-written
+kernels on CUDA tensors). The MLP is dense or Mixtral-style top-k MoE
+with dense dispatch.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ray_tpu_torch.ops.attention import flash_attention
 
@@ -45,8 +53,9 @@ class TransformerConfig:
     experts_per_token: int = 2
     # Blockwise cross-entropy chunk (tokens); 0 = materialize full logits.
     logits_chunk: int = 0
-    # "full" recomputes the whole layer. "dots" and "attn" (selective
-    # checkpointing in the reference) are not ported yet: ROADMAP A10.
+    # What remat recomputes (``decoder_stack``): "full" the whole layer;
+    # "dots" all but the products without batch dims (the projections);
+    # "attn" all but the flash-attention op.
     remat_policy: str = "full"
     # Kept for field parity: the layer loop here has nothing to unroll.
     scan_unroll: int = 1
@@ -243,21 +252,51 @@ def embed(params: Params, tokens, cfg: TransformerConfig):
     return params["embed"][tokens].to(cfg.dtype)
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: save
+    every product without batch dimensions. ``h @ w`` on a 3-D ``h`` (the
+    attention and dense-MLP projections, the MoE router) reaches
+    ``aten.mm``; an einsum
+    without batch dims ("bsd,edf->bsef") reaches ``aten.bmm`` with a batch
+    of 1, and one with batch dims ("bsef,efd->bsed" over e) a larger
+    batch. Attention is the flash op, not a product, so it is recomputed,
+    as the reference recomputes its ``pallas_call``."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _attn_policy(ctx, op, *args, **kwargs):
+    """``save_only_these_names("attn_out")``: save the flash op's outputs.
+    Both of them, o and lse, so that the backward launches no forward
+    kernel (the reference names only o)."""
+    if op is torch.ops.ray_tpu_torch.flash_fwd.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT_POLICIES = {"full": None, "dots": _dots_policy, "attn": _attn_policy}
+
+
 def decoder_stack(params: Params, h, cfg: TransformerConfig, positions, attn_fn=None):
     """The layer loop; with ``cfg.remat`` under autograd each layer is
-    recomputed in backward (non-reentrant checkpoint, policy "full")."""
+    recomputed in backward (non-reentrant checkpoint), wholly under
+    ``remat_policy`` "full" and selectively under "dots" and "attn"."""
     remat = cfg.remat and torch.is_grad_enabled()
+    kwargs = {}
     if cfg.remat:
-        if cfg.remat_policy not in ("full", "dots", "attn"):
+        if cfg.remat_policy not in _REMAT_POLICIES:
             raise ValueError(
                 f"remat_policy must be 'full', 'dots' or 'attn', got {cfg.remat_policy!r}")
-        if cfg.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy {cfg.remat_policy!r} (selective checkpointing) is not ported "
-                "yet: ROADMAP A10")
+        policy = _REMAT_POLICIES[cfg.remat_policy]
+        if policy is not None:
+            kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                     policy)
     for lp in unbind_layers(params):
         if remat:
-            h = checkpoint(decoder_layer, h, lp, cfg, positions, attn_fn, use_reentrant=False)
+            h = checkpoint(decoder_layer, h, lp, cfg, positions, attn_fn, use_reentrant=False,
+                           **kwargs)
         else:
             h = decoder_layer(h, lp, cfg, positions, attn_fn)
     return h

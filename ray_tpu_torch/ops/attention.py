@@ -6,13 +6,19 @@ package's: q is ``[batch, q_heads, seq, head_dim]``, k/v are
 GQA is native: the kernels index the shared kv head of each q-head group
 and never materialise repeated K/V.
 
-- ``flash_attention``: differentiable (``FlashAttention``, the port of the
-  JAX ``custom_vjp``). On CUDA tensors its forward runs the hand-written
-  ``sm_90a`` kernel in ``csrc/flash_fwd.cu`` and its backward the dQ
-  kernel in ``csrc/flash_bwd.cu`` and the dK/dV kernel in
-  ``csrc/flash_bwd_dkv.cu`` (each built at first launch); on CPU
-  tensors both run the plain versions. A CUDA input the kernels cannot
-  take raises; nothing falls back to the plain version on the card.
+- ``flash_attention``: differentiable, through the custom ops
+  ``ray_tpu_torch::flash_fwd`` → (o, lse) and ``ray_tpu_torch::flash_bwd``
+  → (dq, dk, dv) (the port of the JAX ``custom_vjp``; as ops they are
+  opaque to the dispatcher, so a selective checkpoint policy can save
+  their outputs). On CUDA tensors each op runs hand-written ``sm_90a``
+  kernels (built at first launch) on one of two routes, chosen by
+  ``_kernel_route`` from dtype, head dim and scale: the Hopper kernels
+  (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` for dQ,
+  ``csrc/flash_bwd_dkv.cu`` for dK/dV; bf16/fp16, head dim a multiple of
+  16 up to 128) or the general ones (``csrc/flash_general.cu``; fp32,
+  bf16 or fp16, head dim up to 256). On CPU tensors the ops run the plain
+  versions. A CUDA input neither route takes raises; nothing falls back
+  to the plain version on the card.
 - ``flash_attention_plain`` / ``flash_attention_bwd_plain``: the kernels'
   functions in plain PyTorch, with the kernels' TOP-LEFT causal
   convention (``q_id >= k_id``, as ``_flash_fwd_kernel`` and the backward
@@ -32,6 +38,9 @@ import torch
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float16)
+# The general kernels' element types, by the code their entry points take.
+_GENERAL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+GENERAL_MAX_HEAD_DIM = 256
 
 
 def reference_attention(q, k, v, causal: bool = True, scale: Optional[float] = None):
@@ -120,15 +129,38 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool, scale: float):
     return dq.reshape(b, H, q_len, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_kernel_inputs(q, k, v):
+def _kernel_route(q, k, scale: float) -> str:
+    """Which kernels take these inputs on the card: ``"hopper"`` (the TMA/
+    ``wgmma`` kernels of ``csrc/flash_fwd.cu``, ``flash_bwd.cu`` and
+    ``flash_bwd_dkv.cu``) for bf16/fp16 q and k of one dtype, a head dim
+    that is a multiple of 16 up to 128, and ``scale > 0``; ``"general"``
+    (``csrc/flash_general.cu``) for every other input. A pure function of
+    shape, dtype and scale: it is not a fallback, and either route raises
+    on a failed build or launch. Raises above head dim 256, which neither
+    route takes (the reference's Pallas kernels take any head dim)."""
+    hd = q.shape[-1]
+    if hd > GENERAL_MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention kernels: head_dim {hd} > {GENERAL_MAX_HEAD_DIM}")
+    if (q.dtype in _KERNEL_DTYPES and k.dtype == q.dtype and hd % 16 == 0 and hd <= 128
+            and scale > 0):
+        return "hopper"
+    return "general"
+
+
+def _check_kernel_inputs(q, k, v, route: str = "hopper"):
+    """q/k/v as the ``route``'s kernels take them: one CUDA device, one
+    dtype (bf16/fp16 for "hopper"; fp32, bf16 or fp16 for "general"),
+    GQA-compatible 4-D shapes, the route's head dims, contiguous (and
+    16-byte aligned for the Hopper kernels' TMA loads)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(
             f"flash_attention: q, k, v must share one CUDA device "
             f"(got {q.device}, {k.device}, {v.device})"
         )
-    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    dtypes = _KERNEL_DTYPES if route == "hopper" else tuple(_GENERAL_DTYPES)
+    if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
-            f"flash_attention kernel takes bf16 or fp16 q/k/v of one dtype "
+            f"flash_attention {route} kernels take q/k/v of one dtype in {dtypes} "
             f"(got {q.dtype}, {k.dtype}, {v.dtype})"
         )
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -136,21 +168,23 @@ def _check_kernel_inputs(q, k, v):
     b, H, q_len, hd = q.shape
     if k.shape[0] != b or k.shape[3] != hd or H % k.shape[1]:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)}")
-    if hd % 16 or hd > 128:
+    if route == "hopper" and (hd % 16 or hd > 128):
         raise ValueError(f"flash_attention kernel: head_dim {hd} must be a multiple of 16, <= 128")
-    if b * H > 65535:
-        raise ValueError(f"flash_attention kernel: batch*heads {b * H} > 65535")
+    if not 0 < hd <= GENERAL_MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention general kernels: head_dim {hd} must be in "
+                         f"[1, {GENERAL_MAX_HEAD_DIM}]")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention kernel: {name} must be contiguous")
-        if t.data_ptr() % 16:
+        if route == "hopper" and t.data_ptr() % 16:
             raise ValueError(f"flash_attention kernel: {name} must be 16-byte aligned")
 
 
 def _kernel_fn(lib_name: str, fn_name: str, n_ptrs: int):
     """The C entry point ``fn_name`` of ``csrc/<lib_name>.cu``: ``n_ptrs``
     pointers, then (batch, heads, kv_heads, q_len, k_len, head_dim, scale,
-    causal, is_bf16, stream)."""
+    causal, dtype flag, stream); the flag is ``is_bf16`` for the Hopper
+    kernels and the ``_GENERAL_DTYPES`` code for the general ones."""
     from ray_tpu_torch.ops import _build
 
     fn = getattr(_build.load(lib_name), fn_name)
@@ -162,38 +196,48 @@ def _kernel_fn(lib_name: str, fn_name: str, n_ptrs: int):
     return fn
 
 
+def _shape_args(q, k, causal: bool, scale: float, dtype_flag: int):
+    """The shape arguments every entry point takes after its pointers."""
+    b, H, q_len, hd = q.shape
+    KV, k_len = k.shape[1], k.shape[2]
+    return (b, H, KV, q_len, k_len, hd, float(scale), int(bool(causal)), dtype_flag,
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _launch(lib_name: str, fn_name: str, ptrs, shape_args):
+    err = _kernel_fn(lib_name, fn_name, len(ptrs))(*(t.data_ptr() for t in ptrs), *shape_args)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} kernel launch failed: cudaError {err}")
+
+
+def _fwd_outputs(q, k):
+    if k.shape[2] == 0 and q.shape[2]:
+        raise ValueError("flash_attention kernel: k_len must be > 0")
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    return torch.empty_like(q), lse
+
+
 def flash_forward_cuda(q, k, v, causal: bool, scale: float):
-    """Launch the ``sm_90a`` kernel → (o, lse). Raises on any input it
-    cannot take and on a launch error; never runs the plain version."""
+    """Launch the ``sm_90a`` forward kernel → (o, lse); counts its launches
+    in ``flash_attention.launches``. Raises on any input it cannot take and
+    on a launch error; never runs the plain version."""
     _check_kernel_inputs(q, k, v)
     if not scale > 0:
         raise ValueError(f"flash_attention kernel: scale must be > 0, got {scale}")
-    b, H, q_len, hd = q.shape
-    KV, k_len = k.shape[1], k.shape[2]
-    o = torch.empty_like(q)
-    lse = torch.empty((b, H, q_len), dtype=torch.float32, device=q.device)
-    if q_len == 0:
+    o, lse = _fwd_outputs(q, k)
+    if q.shape[2] == 0:
         return o, lse
-    if k_len == 0:
-        raise ValueError("flash_attention kernel: k_len must be > 0")
-    fn = _kernel_fn("flash_fwd", "flash_fwd", 5)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, H, KV, q_len, k_len, hd, float(scale), int(bool(causal)),
-        int(q.dtype == torch.bfloat16), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
+    _launch("flash_fwd", "flash_fwd", (q, k, v, o, lse),
+            _shape_args(q, k, causal, scale, int(q.dtype == torch.bfloat16)))
     flash_attention.launches += 1
     return o, lse
 
 
-def _check_bwd_inputs(q, k, v, like_q: dict, rows: dict):
+def _check_bwd_inputs(q, k, v, like_q: dict, rows: dict, route: str = "hopper"):
     """q/k/v as the forward takes them; ``like_q`` tensors of q's shape and
-    dtype and fp32 ``rows`` of ``[b, H, q_len]``, all contiguous and 16-byte
-    aligned on q's device."""
-    _check_kernel_inputs(q, k, v)
+    dtype and fp32 ``rows`` of ``[b, H, q_len]``, all contiguous (and
+    16-byte aligned for the Hopper kernels) on q's device."""
+    _check_kernel_inputs(q, k, v, route)
     for name, t in like_q.items():
         if t.shape != q.shape or t.dtype != q.dtype:
             raise ValueError(f"flash backward: {name}{tuple(t.shape)}/{t.dtype} must match "
@@ -203,20 +247,13 @@ def _check_bwd_inputs(q, k, v, like_q: dict, rows: dict):
             raise ValueError(f"flash backward: {name} must be fp32 {tuple(q.shape[:3])}, "
                              f"got {t.dtype} {tuple(t.shape)}")
     for name, t in {**like_q, **rows}.items():
-        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash backward: {name} must be a contiguous, 16-byte aligned "
-                             f"tensor on {q.device}")
+        if t.device != q.device or not t.is_contiguous() or (
+                route == "hopper" and t.data_ptr() % 16):
+            raise ValueError(f"flash backward: {name} must be a contiguous "
+                             f"{'16-byte aligned ' if route == 'hopper' else ''}tensor on "
+                             f"{q.device}")
     if q.shape[2] == 0 or k.shape[2] == 0:
         raise ValueError("flash backward kernels: q_len and k_len must be > 0")
-
-
-def _bwd_shape_args(q, k, causal: bool, scale: float):
-    """The shape arguments both backward entry points take after their
-    pointers."""
-    b, H, q_len, hd = q.shape
-    KV, k_len = k.shape[1], k.shape[2]
-    return (b, H, KV, q_len, k_len, hd, float(scale), int(bool(causal)),
-            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def flash_bwd_dq_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
@@ -226,11 +263,8 @@ def flash_bwd_dq_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
     _check_bwd_inputs(q, k, v, {"o": o, "do": do}, {"lse": lse})
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    ptrs = (q, k, v, o, do, lse, dq, delta)
-    err = _kernel_fn("flash_bwd", "flash_bwd_dq", len(ptrs))(
-        *(t.data_ptr() for t in ptrs), *_bwd_shape_args(q, k, causal, scale))
-    if err != 0:
-        raise RuntimeError(f"flash_bwd_dq kernel launch failed: cudaError {err}")
+    _launch("flash_bwd", "flash_bwd_dq", (q, k, v, o, do, lse, dq, delta),
+            _shape_args(q, k, causal, scale, int(q.dtype == torch.bfloat16)))
     flash_bwd_dq_cuda.launches += 1
     return dq, delta
 
@@ -241,24 +275,17 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
     the one ``flash_bwd_dq_cuda`` returns."""
     _check_bwd_inputs(q, k, v, {"do": do}, {"lse": lse, "delta": delta})
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    ptrs = (q, k, v, do, lse, delta, dk, dv)
-    err = _kernel_fn("flash_bwd_dkv", "flash_bwd_dkv", len(ptrs))(
-        *(t.data_ptr() for t in ptrs), *_bwd_shape_args(q, k, causal, scale))
-    if err != 0:
-        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: cudaError {err}")
+    _launch("flash_bwd_dkv", "flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
+            _shape_args(q, k, causal, scale, int(q.dtype == torch.bfloat16)))
     flash_bwd_dkv_cuda.launches += 1
     return dk, dv
 
 
-flash_bwd_dq_cuda.launches = 0
-flash_bwd_dkv_cuda.launches = 0
-
-
 def flash_backward_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
-    """The backward on the card → (dq, dk, dv), dk/dv kv-head shaped: the
-    dQ kernel (which also computes Δ = rowsum(dO∘O)), then the dK/dV
-    kernel. Raises on any input the kernels cannot take and on a launch
-    error; never runs the plain version."""
+    """The backward on the card through the Hopper kernels → (dq, dk, dv),
+    dk/dv kv-head shaped: the dQ kernel (which also computes Δ =
+    rowsum(dO∘O)), then the dK/dV kernel. Raises on any input the kernels
+    cannot take and on a launch error; never runs the plain version."""
     _check_kernel_inputs(q, k, v)
     if q.shape[2] == 0:
         return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
@@ -267,42 +294,138 @@ def flash_backward_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
     return dq, dk, dv
 
 
-class FlashAttention(torch.autograd.Function):
-    """``flash_attention`` with its backward (the port of the JAX
-    ``custom_vjp``): saves ``(q, k, v, o, lse)``; the kernels on CUDA
-    tensors, the plain versions on CPU tensors."""
+def flash_general_forward_cuda(q, k, v, causal: bool, scale: float):
+    """Launch the general forward kernel (``csrc/flash_general.cu``) → (o,
+    lse): fp32, bf16 or fp16, any head dim up to 256, any scale; counts its
+    launches in ``flash_general_forward_cuda.launches``."""
+    _check_kernel_inputs(q, k, v, "general")
+    o, lse = _fwd_outputs(q, k)
+    if q.shape[2] == 0:
+        return o, lse
+    _launch("flash_general", "flash_general_fwd", (q, k, v, o, lse),
+            _shape_args(q, k, causal, scale, _GENERAL_DTYPES[q.dtype]))
+    flash_general_forward_cuda.launches += 1
+    return o, lse
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
-        if q.device.type == "cpu":
-            o, lse = flash_attention_plain(q, k, v, causal, scale)
-        else:
-            o, lse = flash_forward_cuda(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        # The grad arrives as a transposed view ([b, s, H, hd] → [b, H, s, hd]).
-        do = do.contiguous()
-        if q.device.type == "cpu":
-            dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do, ctx.causal, ctx.scale)
-        else:
-            dq, dk, dv = flash_backward_cuda(q, k, v, o, lse, do, ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+def flash_general_dq_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
+    """Launch the general dQ kernel → (dq, delta), as ``flash_bwd_dq_cuda``;
+    counts its launches in ``flash_general_dq_cuda.launches``."""
+    _check_bwd_inputs(q, k, v, {"o": o, "do": do}, {"lse": lse}, "general")
+    dq = torch.empty_like(q)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _launch("flash_general", "flash_general_dq", (q, k, v, o, do, lse, dq, delta),
+            _shape_args(q, k, causal, scale, _GENERAL_DTYPES[q.dtype]))
+    flash_general_dq_cuda.launches += 1
+    return dq, delta
+
+
+def flash_general_dkv_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """Launch the general dK/dV kernel → (dk, dv), as
+    ``flash_bwd_dkv_cuda``; counts its launches in
+    ``flash_general_dkv_cuda.launches``."""
+    _check_bwd_inputs(q, k, v, {"do": do}, {"lse": lse, "delta": delta}, "general")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_general", "flash_general_dkv", (q, k, v, do, lse, delta, dk, dv),
+            _shape_args(q, k, causal, scale, _GENERAL_DTYPES[q.dtype]))
+    flash_general_dkv_cuda.launches += 1
+    return dk, dv
+
+
+def flash_general_backward_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
+    """The backward on the card through the general kernels → (dq, dk, dv),
+    as ``flash_backward_cuda``."""
+    _check_kernel_inputs(q, k, v, "general")
+    if q.shape[2] == 0:
+        return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq, delta = flash_general_dq_cuda(q, k, v, o, lse, do, causal, scale)
+    dk, dv = flash_general_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+for _wrapper in (flash_bwd_dq_cuda, flash_bwd_dkv_cuda, flash_general_forward_cuda,
+                 flash_general_dq_cuda, flash_general_dkv_cuda):
+    _wrapper.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The custom ops: opaque to the dispatcher, so that a selective checkpoint
+# policy (models/transformer.py) can save their outputs and skip a launch.
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op(
+    "ray_tpu_torch::flash_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, float scale) -> (Tensor, Tensor)")
+def flash_fwd(q, k, v, causal, scale):
+    """(o, lse) of flash attention: the plain version on CPU tensors."""
+    return flash_attention_plain(q, k, v, causal, scale)
+
+
+@flash_fwd.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, causal, scale):
+    if _kernel_route(q, k, scale) == "hopper":
+        return flash_forward_cuda(q, k, v, causal, scale)
+    return flash_general_forward_cuda(q, k, v, causal, scale)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale):
+    lse_dtype = torch.float64 if q.dtype == torch.float64 else torch.float32
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=lse_dtype)
+
+
+@torch.library.custom_op(
+    "ray_tpu_torch::flash_bwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor do, bool causal, "
+           "float scale) -> (Tensor, Tensor, Tensor)")
+def flash_bwd(q, k, v, o, lse, do, causal, scale):
+    """(dq, dk, dv) of flash attention: the plain version on CPU tensors."""
+    return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
+
+
+@flash_bwd.register_kernel("cuda")
+def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale):
+    if _kernel_route(q, k, scale) == "hopper":
+        return flash_backward_cuda(q, k, v, o, lse, do, causal, scale)
+    return flash_general_backward_cuda(q, k, v, o, lse, do, causal, scale)
+
+
+@flash_bwd.register_fake
+def _flash_bwd_fake(q, k, v, o, lse, do, causal, scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _flash_fwd_setup_context(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal, ctx.scale = causal, scale
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_fwd_backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    # The grad arrives as a transposed view ([b, s, H, hd] → [b, H, s, hd]).
+    dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), ctx.causal, ctx.scale)
+    return dq, dk, dv, None, None
+
+
+flash_fwd.register_autograd(_flash_fwd_backward, setup_context=_flash_fwd_setup_context)
 
 
 def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None):
-    """Flash attention → o ``[b, H, q_len, hd]`` in q's dtype, differentiable.
+    """Flash attention → o ``[b, H, q_len, hd]`` in q's dtype, differentiable
+    (the port of the JAX ``custom_vjp``: ``flash_fwd`` saves ``(q, k, v, o,
+    lse)`` and its backward is ``flash_bwd``).
 
-    CUDA tensors run the hand-written kernels (``flash_attention.launches``
-    counts forward launches, ``flash_bwd_dq_cuda.launches`` and
-    ``flash_bwd_dkv_cuda.launches`` backward ones); CPU tensors run the
-    plain versions."""
+    CUDA tensors run the kernels of ``_kernel_route``: Hopper launches are
+    counted in ``flash_attention.launches`` (forward),
+    ``flash_bwd_dq_cuda.launches`` and ``flash_bwd_dkv_cuda.launches``,
+    general ones in ``flash_general_{forward,dq,dkv}_cuda.launches``. CPU
+    tensors run the plain versions."""
     s = scale if scale is not None else q.shape[-1] ** -0.5
-    return FlashAttention.apply(q, k, v, causal, s)
+    return flash_fwd(q, k, v, bool(causal), float(s))[0]
 
 
 flash_attention.launches = 0

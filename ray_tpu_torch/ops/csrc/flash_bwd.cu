@@ -503,8 +503,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                             int heads, int kv_heads, int q_len, int k_len, int head_dim,
                             float scale, int causal, int is_bf16, void* stream) {
   if (batch <= 0 || heads <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || q_len <= 0 ||
-      k_len <= 0 || head_dim <= 0 || head_dim % 16 != 0 || head_dim > 128 ||
-      (long long)batch * heads > 65535)
+      k_len <= 0 || head_dim <= 0 || head_dim % 16 != 0 || head_dim > 128)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(is_bf16 ? dispatch<true>(q, k, v, o, dout, lse, dq, delta, batch, heads, kv_heads,

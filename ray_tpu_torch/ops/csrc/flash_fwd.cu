@@ -465,7 +465,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
                          void* stream) {
   if (batch <= 0 || heads <= 0 || kv_heads <= 0 || heads % kv_heads != 0 ||
       q_len <= 0 || k_len <= 0 || head_dim <= 0 || head_dim % 16 != 0 ||
-      head_dim > 128 || (long long)batch * heads > 65535 || !(scale > 0.f))
+      head_dim > 128 || !(scale > 0.f))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =

@@ -10,8 +10,10 @@ is fp32 summation-order noise on O(1) values: 2e-5.
 The plain backward is held to the Pallas backward kernels in the same
 way (``_flash_backward(..., interpret=True)``, dq, dk and dv), on the
 same o and lse, at the same shapes: fp32 sums over up to 320 keys or
-queries of O(1) terms, so 1e-4. ``FlashAttention`` (the autograd Function)
-is checked with ``torch.autograd.gradcheck`` in float64.
+queries of O(1) terms, so 1e-4. (The shapes only the general kernels
+take are in ``tests/test_torch_attention_general.py``.)
+``flash_attention`` (the custom op ``ray_tpu_torch::flash_fwd`` with its
+autograd) is checked with ``torch.autograd.gradcheck`` in float64.
 
 The CUDA kernels themselves only run on the card: the tests that need one
 are marked ``cuda`` and skip without it; ``chip_smoke.py`` is their full
@@ -28,6 +30,23 @@ from ray_tpu_torch.ops import attention as tatt
 
 TOL = 2e-5
 BWD_TOL = 1e-4
+# The Pallas kernels in interpret mode, jitted: one compiled program cached
+# by shape instead of an op-by-op run of the grid (the same computation,
+# several times faster).
+_flash_forward = jax.jit(jatt._flash_forward, static_argnums=(3, 4, 5, 6, 7))
+_flash_backward = jax.jit(jatt._flash_backward, static_argnums=(6, 7, 8, 9, 10))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch intra-op thread while this file runs, then the old count.
+    Its ops are small; under several test workers on a few cores, torch's
+    default of one thread a core made them wait on each other and on the
+    other workers (the float64 gradcheck took minutes instead of seconds)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 # (id, q shape, kv shape, causal, pallas block_q, block_k)
 SHAPES = [
@@ -60,7 +79,7 @@ def _inputs(qs, ks, seed=0):
 
 def _pallas(q, k, v, causal, scale, bq, bk):
     with jax.default_matmul_precision("highest"):
-        o, lse = jatt._flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        o, lse = _flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                      causal, scale, bq, bk, True)
         return np.asarray(o), np.asarray(lse)
 
@@ -139,8 +158,8 @@ def _pallas_bwd(q, k, v, do, causal, scale, bq, bk):
     (dq, dk, dv)."""
     with jax.default_matmul_precision("highest"):
         args = [jnp.asarray(a) for a in (q, k, v)]
-        o, lse = jatt._flash_forward(*args, causal, scale, bq, bk, True)
-        grads = jatt._flash_backward(*args, o, lse, jnp.asarray(do), causal, scale, bq, bk, True)
+        o, lse = _flash_forward(*args, causal, scale, bq, bk, True)
+        grads = _flash_backward(*args, o, lse, jnp.asarray(do), causal, scale, bq, bk, True)
         return np.asarray(o), np.asarray(lse), [np.asarray(g) for g in grads]
 
 
@@ -166,7 +185,7 @@ def test_plain_bwd_matches_pallas_interpret(name, qs, ks, causal, bq, bk):
     ids=["causal", "gqa", "cross_length", "gqa_noncausal_ragged"],
 )
 def test_flash_attention_gradcheck_float64(qs, ks, causal):
-    """The autograd Function's backward (the plain backward on CPU) is the
+    """The custom op's backward (the plain backward on CPU) is the
     derivative of its forward, by finite differences in float64."""
     q, k, v = (torch.tensor(a, dtype=torch.float64, requires_grad=True)
                for a in _inputs(qs, ks, seed=12))
@@ -210,6 +229,46 @@ def test_dq_kernel_path_rejects_non_cuda_inputs():
     with pytest.raises(ValueError, match="CUDA"):
         tatt.flash_bwd_dq_cuda(q, q, q, q, lse, q, True, 0.25)
     assert tatt.flash_bwd_dq_cuda.launches == before
+
+
+def _empty(shape, dtype):
+    """A tensor of ``shape`` and ``dtype`` without its memory (stride 0)."""
+    return torch.empty((1,) * len(shape), dtype=dtype).expand(shape)
+
+
+# (id, dtype, q shape, kv shape, scale, route)
+ROUTES = [
+    ("bf16_hd128", torch.bfloat16, (12, 18, 2048, 128), (12, 18, 2048, 128), 0.088, "hopper"),
+    ("fp16_hd64_gqa", torch.float16, (2, 8, 128, 64), (2, 2, 128, 64), 0.125, "hopper"),
+    ("bf16_hd16", torch.bfloat16, (1, 2, 48, 16), (1, 1, 48, 16), 0.25, "hopper"),
+    # b·H = 65,600: the Hopper kernels schedule on a one-dimensional grid.
+    ("bf16_bh65600", torch.bfloat16, (4100, 16, 16, 64), (4100, 16, 16, 64), 0.125, "hopper"),
+    ("fp32_hd64", torch.float32, (2, 8, 1024, 64), (2, 4, 1024, 64), 0.125, "general"),
+    ("bf16_hd256", torch.bfloat16, (1, 16, 2048, 256), (1, 16, 2048, 256), 0.0625, "general"),
+    ("fp16_hd72", torch.float16, (1, 4, 300, 72), (1, 2, 500, 72), 0.118, "general"),
+    ("bf16_hd24", torch.bfloat16, (1, 2, 8, 24), (1, 2, 8, 24), 0.2, "general"),
+    ("bf16_hd144", torch.bfloat16, (1, 2, 8, 144), (1, 2, 8, 144), 0.08, "general"),
+    ("bf16_negative_scale", torch.bfloat16, (1, 2, 8, 64), (1, 2, 8, 64), -0.125, "general"),
+    ("fp32_hd1", torch.float32, (1, 2, 8, 1), (1, 2, 8, 1), 1.0, "general"),
+]
+
+
+@pytest.mark.parametrize("name,dtype,qs,ks,scale,route", ROUTES, ids=[r[0] for r in ROUTES])
+def test_kernel_route(name, dtype, qs, ks, scale, route):
+    """The route is a pure function of shape, dtype and scale: it reads no
+    data and needs no card."""
+    assert tatt._kernel_route(_empty(qs, dtype), _empty(ks, dtype), scale) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_route_raises_above_head_dim_256(dtype):
+    """Neither route takes a head dim above 256 (a settled difference: the
+    reference's Pallas kernels take any head dim)."""
+    q = _empty((1, 2, 8, 264), dtype)
+    with pytest.raises(ValueError, match="head_dim 264"):
+        tatt._kernel_route(q, q, 0.0625)
+    assert tatt._kernel_route(_empty((1, 2, 8, 256), dtype), _empty((1, 2, 8, 256), dtype),
+                              0.0625) == "general"
 
 
 @pytest.fixture

@@ -6,6 +6,7 @@ models are never compared). fp32 throughout, JAX under
 ``default_matmul_precision("highest")``; tolerances are fp32
 summation-order noise: 1e-5 for single blocks, 1e-4 for 4-layer logits.
 """
+import collections
 import dataclasses
 
 import jax
@@ -13,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ray_tpu.models import transformer as jtf
 from ray_tpu_torch.models import transformer as ttf
@@ -194,13 +196,17 @@ def _flat(tree, prefix=""):
 
 @pytest.mark.parametrize(
     "case",
-    ["plain", "remat", "chunked", "remat_chunked_masked", "masked", "moe", "moe_remat_chunked"],
+    ["plain", "remat", "chunked", "remat_chunked_masked", "masked", "moe", "moe_remat_chunked",
+     "dots", "attn", "moe_dots", "moe_attn_chunked"],
 )
 def test_loss_and_grads_match_jax(case):
     """``loss_fn`` and every parameter's gradient against
     ``jax.value_and_grad(ray_tpu.models.transformer.loss_fn)`` on the same
-    converted weights, at the tiny config (GQA 4 q / 2 kv heads)."""
-    kw = dict(remat="remat" in case, logits_chunk=16 if "chunked" in case else 0,
+    converted weights, at the tiny config (GQA 4 q / 2 kv heads); the
+    "dots" and "attn" cases run both sides under that remat policy."""
+    policy = next((p for p in ("dots", "attn") if p in case), "full")
+    kw = dict(remat="remat" in case or policy != "full", remat_policy=policy,
+              logits_chunk=16 if "chunked" in case else 0,
               num_experts=4 if "moe" in case else 0)
     jcfg = jtf.TransformerConfig.tiny(dtype=jnp.float32, **kw)
     tcfg = ttf.TransformerConfig.tiny(dtype=torch.float32, **kw)
@@ -246,15 +252,75 @@ def test_forward_is_differentiable():
 
 @pytest.mark.parametrize("policy", ["dots", "attn"])
 def test_selective_remat_policies_raise(policy):
-    """The selective policies are not ported; they never quietly run
-    "full". A name the reference rejects is rejected the same way."""
+    """A selective policy runs and gives "full"'s logits; a name the
+    reference rejects is still rejected the same way (a ValueError)."""
     cfg = ttf.TransformerConfig.tiny(dtype=torch.float32, remat=True, remat_policy=policy)
     params = ttf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     toks = torch.zeros(1, 8, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        ttf.forward(params, toks, cfg)
+    full = ttf.forward(params, toks, dataclasses.replace(cfg, remat_policy="full"))
+    torch.testing.assert_close(ttf.forward(params, toks, cfg), full, rtol=0, atol=0)
     with pytest.raises(ValueError, match="remat_policy"):
         ttf.forward(params, toks, dataclasses.replace(cfg, remat_policy="bogus"))
+
+
+class _OpCounts(TorchDispatchMode):
+    """Counts every op the dispatcher runs (a cached output that a
+    selective checkpoint hands back is not a run)."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.counts[func] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _fwd_bwd_counts(cfg, seed=0):
+    """Op counts of ``loss_fn`` (forward) and of its gradient (backward,
+    the checkpoint recompute included) at ``cfg``."""
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    leaves = list(_flat(params).values())
+    for t in leaves:
+        t.requires_grad_(True)
+    batch = {"tokens": torch.tensor(_tokens((2, 17), seed=12), dtype=torch.int64)}
+    with _OpCounts() as fwd:
+        loss = ttf.loss_fn(params, batch, cfg)
+    with _OpCounts() as bwd:
+        torch.autograd.grad(loss, leaves)
+    return fwd.counts, bwd.counts
+
+
+FLASH_FWD = torch.ops.ray_tpu_torch.flash_fwd.default
+MM, BMM = torch.ops.aten.mm.default, torch.ops.aten.bmm.default
+
+
+@pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
+@pytest.mark.parametrize("policy", ["full", "dots", "attn"])
+def test_selective_remat_recompute_counts(policy, moe):
+    """What each policy recomputes, counted at the dispatcher over forward
+    and backward at the tiny config (L = 4 layers):
+      - the flash op runs 2·L times under "full" and "dots" (forward and
+        recompute) and L times under "attn" (its saved (o, lse) are reused);
+      - the backward re-runs, beyond what it runs without remat, every
+        projection ``aten.mm`` but w_down's under "full" (6·L dense, 5·L
+        MoE with the router: the non-reentrant checkpoint stops its
+        recompute once every saved tensor is back, and nothing saves the
+        layer's last product) and none under "dots"; under "dots" the MoE
+        layer re-runs only its one product with a batch dim (over e)."""
+    kw = dict(dtype=torch.float32, num_experts=4 if moe else 0)
+    L = ttf.TransformerConfig.tiny().n_layers
+    base_fwd, base_bwd = _fwd_bwd_counts(ttf.TransformerConfig.tiny(remat=False, **kw))
+    fwd, bwd = _fwd_bwd_counts(ttf.TransformerConfig.tiny(remat=True, remat_policy=policy, **kw))
+    assert fwd[FLASH_FWD] == base_fwd[FLASH_FWD] == L and base_bwd[FLASH_FWD] == 0
+    assert fwd[FLASH_FWD] + bwd[FLASH_FWD] == (L if policy == "attn" else 2 * L)
+    assert fwd[MM] == base_fwd[MM] and fwd[BMM] == base_fwd[BMM]
+    mm_again, bmm_again = bwd[MM] - base_bwd[MM], bwd[BMM] - base_bwd[BMM]
+    if policy == "dots":
+        assert (mm_again, bmm_again) == (0, L if moe else 0)
+    else:
+        assert mm_again == (5 if moe else 6) * L
+        assert bmm_again == (3 * L if moe else 0)
 
 
 def test_token_nll_matches_jax():
