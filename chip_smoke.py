@@ -10,6 +10,7 @@ their plain versions.
     python3 chip_smoke.py --cli-only      # the CLI and launcher phase (16)
     python3 chip_smoke.py --parallel-only # the mesh-parallel phase (17)
     python3 chip_smoke.py --mpmd-only     # the MPMD phase (18)
+    python3 chip_smoke.py --wide-only     # build, phase 4 and the wide-head flagship (7)
 
 Phases, in order; any failure raises and the process exits non-zero:
   1. the card (the nvidia-smi name and power limit on a line of their
@@ -18,8 +19,9 @@ Phases, in order; any failure raises and the process exits non-zero:
      per source, all started together), with ptxas's registers, shared
      memory and spills, and each library's count of wgmma (``HGMMA``),
      TMA-load (``UTMALDG``) and ``mma.sync`` (``HMMA``) instructions: every
-     Hopper kernel (``HOPPER_KERNELS``) must have the first two and none of
-     the third (``flash_general`` is SIMT: its counts are printed only);
+     Hopper kernel (``HOPPER_KERNELS``, the wide ones included) must have
+     the first two and none of the third (``flash_general`` is SIMT: its
+     counts are printed only);
   3. kernel phase: each Hopper kernel's wrapper on the card against its
      plain PyTorch version at the shapes the main paths give it (and the
      CPU test shapes, and the edges of the kernels' tiles), with times, the
@@ -28,9 +30,17 @@ Phases, in order; any failure raises and the process exits non-zero:
      (no atomics); inputs no kernel takes (head dim 264, a non-contiguous
      dO, a bf16 lse) raise;
   4. general-kernel phase: the three kernels of ``csrc/flash_general.cu``
-     against their plain versions at fp32 GQA, bf16 head dim 256, fp16
-     head dim 72 cross-length and b*H = 65,600 (where the Hopper kernels
-     run too), with times, bounds, plain and SDPA times;
+     against their plain versions at ``GENERAL_SHAPES`` (fp32 GQA, bf16
+     head dim 256 causal, a bf16 GQA at head dim 256, bf16 head dim 144
+     ragged cross-length, the wide-head flagship's own [12, 9, 2048, 256]
+     causal, fp16 head dim 72 cross-length and b*H = 65,600, where the
+     Hopper kernels run too), with times, bounds, plain and SDPA times;
+     where the route is "hopper_wide", the wide forward
+     (``csrc/flash_fwd_wide.cu``) and the wide backward (the general dQ,
+     then ``csrc/flash_bwd_dkv_wide.cu``) against the plain versions too
+     (``O_TOL``, ``LSE_TOL``, ``GRAD_REL_TOL``), timed beside the general
+     kernels, dK/dV run twice bitwise equal; then the wide kernels at
+     ``WIDE_EDGE_SHAPES`` (the edges of their tiles, head dims 144-256);
   5. training phase: ``make_train_step`` on the 750M flagship config of
      ``bench.py`` (full width, full depth, remat, batch 12 x 2048, random
      weights and tokens from seeds) under each remat policy ("full",
@@ -44,6 +54,12 @@ Phases, in order; any failure raises and the process exits non-zero:
      match the same model through plain attention;
   7. full-width gradient check: loss and every gradient of the 750M model
      through the kernels against the same model through plain attention;
+     then the wide-head flagship (``wide_training_phase``): the 750M
+     config with 9 q and 9 kv heads of 256 ("full" remat, batch 12 x 2048)
+     trains 5 steps, each launching 20 wide forwards, 10 general dQ and
+     10 wide dK/dV kernels and nothing else, the loss falling; and its
+     loss and every gradient on one 1 x 2048 batch against plain
+     attention, held to the same bounds;
   8. serving phase: ``LLMEngine`` serving llama7b (bf16, full width, random
      weights from a seed) through the paged engine, then a shared-prefix
      pass and a chunked-prefill pass; the forward kernel's launch counter
@@ -210,9 +226,10 @@ Phases, in order; any failure raises and the process exits non-zero:
      ``PARALLEL_PLANS`` (fsdp2, tp2, sp2 ring, sp2 Ulysses, pp2 with 2
      microbatches, ep2 on its MoE form with ``PARALLEL_EXPERTS`` experts,
      top-2, at full width and depth, and fsdp2·tp2 on 4 ranks), its ranks
-     spawned processes sharing cuda:0 over gloo (``build_mesh``; the
-     backend, the bytes staged through the host, and the bytes of CUDA
-     tensors handed to gloo printed). First the bare single-process step on the
+     spawned processes sharing cuda:0 over gloo, one spawn for every plan
+     of a world size, plan after plan (``build_mesh``; the backend, the
+     bytes staged through the host, and the bytes of CUDA tensors handed
+     to gloo printed). First the bare single-process step on the
      same seeds and batch, dense and MoE, 3 steps each, then freed; then
      the three Hopper kernels at the plans' local shapes against their
      plain versions; then each plan for 3 steps, every rank's shards drawn
@@ -287,10 +304,12 @@ GRAD_REL_TOL = 2e-2
 # Full-width (10-layer, bf16) training loss and gradients, kernels vs plain
 # attention: the per-layer differences above pass through 10 bf16 layers
 # and their remat recompute. Loss relative, global grad norm relative,
-# and every parameter's gradient by cosine.
-TRAIN_LOSS_REL_TOL = 1e-2
+# and every parameter's gradient by cosine. Both routes read the same to
+# the digit run after run on the H100: loss within 1.7e-5 and every cosine
+# >= 0.99974 (18 heads of 128 and 9 of 256).
+TRAIN_LOSS_REL_TOL = 1e-3
 TRAIN_GNORM_REL_TOL = 2e-2
-TRAIN_GRAD_COS_MIN = 0.99
+TRAIN_GRAD_COS_MIN = 0.9997
 
 TRAIN_SHAPE_LABEL = "train [12, 18, 2048, 128]"
 GQA_SHAPE_LABEL = "gqa 32q/8kv S=2048"
@@ -311,7 +330,8 @@ EDGE_SHAPES = [
 ]
 # Every kernel is built around TMA and wgmma: its SASS must hold both, and
 # no mma.sync.
-HOPPER_KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_dkv")
+HOPPER_KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_dkv", "flash_fwd_wide",
+                  "flash_bwd_dkv_wide")
 # The dQ kernel's delta against rowsum(dO * O) in torch: fp32 sums of hd
 # products in another order, relative to the largest |delta|.
 DELTA_REL_TOL = 1e-4
@@ -363,14 +383,15 @@ def peaks(name: str, fp32: bool = False):
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Device time per call. The calls are enqueued behind a GPU spin
-    (~10 ms) so the events bracket back-to-back device work, not the
-    host's launch rate (which bounds small shapes otherwise)."""
+    (~50 ms) so the events bracket back-to-back device work, not the
+    host's launch rate (which bounds small shapes otherwise, and SDPA's
+    fp32 GQA backward, a dozen eager ops, behind a shorter spin)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)
+    torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -524,23 +545,16 @@ def kernel_phase(card: str) -> dict:
 
 
 def sdpa_backward_ms(q, k, v, do, causal, scale):
-    """Library yardstick for the backward: SDPA forward+backward minus SDPA
-    forward, each timed on its own (the backward alone cannot be called)."""
+    """Library yardstick for the backward: SDPA's backward alone,
+    ``torch.autograd.grad`` on one retained SDPA graph, timed as any
+    kernel (a difference of two timings swings several-fold at small
+    shapes, where the host's launches dominate)."""
     import torch.nn.functional as F
 
-    gqa = q.shape[1] != k.shape[1]
     qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
-
-    def fwd():
-        with torch.no_grad():
-            F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=scale, enable_gqa=gqa)
-
-    def fwd_bwd():
-        o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal, scale=scale,
-                                           enable_gqa=gqa)
-        torch.autograd.grad(o, (qr, kr, vr), do)
-
-    return time_ms(fwd_bwd) - time_ms(fwd)
+    o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal, scale=scale,
+                                       enable_gqa=q.shape[1] != k.shape[1])
+    return time_ms(lambda: torch.autograd.grad(o, (qr, kr, vr), do, retain_graph=True))
 
 
 def bwd_kernel_phase(card: str) -> dict:
@@ -672,17 +686,38 @@ GENERAL_O_TOL_FP32 = 2e-4
 GENERAL_O_TOL_16 = 1e-2
 GENERAL_LSE_TOL = 2e-4
 GENERAL_HEAD_LABEL = "bf16 [1, 16/16, 2048, 256] causal"
+WIDE_TRAIN_LABEL = "wide train [12, 9, 2048, 256] causal"
 # (label, b, H, KV, q_len, k_len, hd, causal, dtype, route): the head shape
-# of Gemma-7B's public config is the headline; at b*H = 65,600 the Hopper
-# kernels run too (their grid is one-dimensional).
+# of Gemma-7B's public config is the headline; the bf16 head dims 144-256
+# take the wide route (its kernels are checked and timed beside the
+# general ones there, also at the wide-head flagship's training shape, 864
+# forward blocks in several waves); at b*H = 65,600 the Hopper kernels run
+# too (their grid is one-dimensional).
 GENERAL_SHAPES = [
     ("fp32 gqa [2, 8/2, 1024, 64] causal", 2, 8, 2, 1024, 1024, 64, True, torch.float32,
      "general"),
-    (GENERAL_HEAD_LABEL, 1, 16, 16, 2048, 2048, 256, True, torch.bfloat16, "general"),
+    (GENERAL_HEAD_LABEL, 1, 16, 16, 2048, 2048, 256, True, torch.bfloat16, "hopper_wide"),
+    ("bf16 gqa [2, 8/2, 1024, 256] causal", 2, 8, 2, 1024, 1024, 256, True, torch.bfloat16,
+     "hopper_wide"),
+    ("bf16 [1, 4/2, 300, 144] x k_len 500 noncausal", 1, 4, 2, 300, 500, 144, False,
+     torch.bfloat16, "hopper_wide"),
+    (WIDE_TRAIN_LABEL, 12, 9, 9, 2048, 2048, 256, True, torch.bfloat16, "hopper_wide"),
     ("fp16 [1, 4/2, 300, 72] x k_len 500 noncausal", 1, 4, 2, 300, 500, 72, False,
      torch.float16, "general"),
     ("bf16 [4100, 16/16, 16, 64] causal (b*H 65600)", 4100, 16, 16, 16, 16, 64, True,
      torch.bfloat16, "hopper"),
+]
+# The edges of the wide kernels' tiles (the forward's 128-row q tiles of two
+# 64-row consumers and 64-key tiles, the dK/dV kernel's 64-key tiles and
+# 64-query steps) and of their two widths (D = 192 holds head dims 144-192,
+# D = 256 208-256): (label, b, H, KV, q_len, k_len, hd, causal, dtype).
+WIDE_EDGE_SHAPES = [
+    ("causal 130 hd256", 1, 2, 2, 130, 130, 256, True, torch.bfloat16),
+    ("fp16 gqa 2:1 causal 257 hd192", 1, 2, 1, 257, 257, 192, True, torch.float16),
+    ("cross-length causal 320x96 hd208", 1, 2, 2, 320, 96, 208, True, torch.bfloat16),
+    # Keys past every query (causal, k_len > q_len) get exactly zero.
+    ("cross-length causal 64x200 hd160", 1, 2, 2, 64, 200, 160, True, torch.bfloat16),
+    ("noncausal 65x65 hd240", 1, 2, 2, 65, 65, 240, False, torch.bfloat16),
 ]
 
 
@@ -719,7 +754,7 @@ def general_kernel_phase(card: str) -> dict:
         return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
     rows = []
-    max_abs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    max_abs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "wide_fwd": 0.0, "wide_dkv": 0.0}
     for label, b, H, KV, ql, kl, hd, causal, dtype, route in GENERAL_SHAPES:
         q, do = rand(b, H, ql, hd, dtype=dtype), rand(b, H, ql, hd, dtype=dtype)
         k, v = rand(b, KV, kl, hd, dtype=dtype), rand(b, KV, kl, hd, dtype=dtype)
@@ -764,6 +799,14 @@ def general_kernel_phase(card: str) -> dict:
         for kind in ("fwd", "dq", "dkv"):
             row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = attention_bound_ms(
                 b, H, KV, ql, kl, hd, causal, q.element_size(), card, kind)
+        if route == "hopper_wide":
+            row["wide"] = _wide_check(q, k, v, do, causal, scale, o_ref, lse_ref, timed=True)
+            row["wide"]["fwd_bound_ms"] = row["fwd_bound_ms"]
+            row["wide"]["dkv_bound_ms"] = row["dkv_bound_ms"]
+            log(f"[kernel] flash_wide {label}: " + json.dumps(row["wide"]))
+            ok = ok and row["wide"]["ok"]
+            for key in ("fwd", "dkv"):
+                max_abs[f"wide_{key}"] = max(max_abs[f"wide_{key}"], row["wide"][f"{key}_abs_err"])
         if route == "hopper":
             o_h, lse_h = att.flash_forward_cuda(q, k, v, causal, scale)
             grads_h = att.flash_backward_cuda(q, k, v, o_h, lse_h, do, causal, scale)
@@ -785,8 +828,79 @@ def general_kernel_phase(card: str) -> dict:
         rows.append(row)
         del q, k, v, do, o, lse, grads, o_ref, lse_ref, ref
         torch.cuda.empty_cache()
+    for label, b, H, KV, ql, kl, hd, causal, dtype in WIDE_EDGE_SHAPES:
+        q, do = rand(b, H, ql, hd, dtype=dtype), rand(b, H, ql, hd, dtype=dtype)
+        k, v = rand(b, KV, kl, hd, dtype=dtype), rand(b, KV, kl, hd, dtype=dtype)
+        scale = hd**-0.5
+        o_ref, lse_ref = att.flash_attention_plain(q.float(), k.float(), v.float(), causal, scale)
+        row = {"shape": label, "route": att._kernel_route(q, k, scale),
+               **_wide_check(q, k, v, do, causal, scale, o_ref, lse_ref, timed=False)}
+        log(f"[kernel] flash_wide {label}: " + json.dumps(row))
+        if not (row["ok"] and row["route"] == "hopper_wide"):
+            raise AssertionError(f"wide kernels disagree with their plain versions at {label}: "
+                                 f"{row}")
+        for key in ("fwd", "dkv"):
+            max_abs[f"wide_{key}"] = max(max_abs[f"wide_{key}"], row[f"{key}_abs_err"])
+    # Keys past every query get exactly zero; inputs the wide kernels do
+    # not take raise.
+    q, k, v, do = (rand(1, 2, n, 160, dtype=torch.bfloat16) for n in (64, 200, 200, 64))
+    o, lse = att.flash_forward_wide_cuda(q, k, v, True, 0.08)
+    _, dk, dv = att.flash_backward_wide_cuda(q, k, v, o, lse, do, True, 0.08)
+    if dk[:, :, 64:].count_nonzero() or dv[:, :, 64:].count_nonzero():
+        raise AssertionError("wide dK/dV: keys past every query got a gradient")
+    x128, x200 = (rand(1, 2, 8, hd, dtype=torch.bfloat16) for hd in (128, 200))
+    for what, bad in (("head_dim 128", lambda: att.flash_forward_wide_cuda(x128, x128, x128,
+                                                                           True, 0.08)),
+                      ("head_dim 200", lambda: att.flash_forward_wide_cuda(x200, x200, x200,
+                                                                           True, 0.08)),
+                      ("scale <= 0", lambda: att.flash_forward_wide_cuda(q, k, v, True, -0.08))):
+        try:
+            bad()
+        except ValueError as e:
+            log(f"[kernel] wide kernel rejected {what} as expected: {e}")
+        else:
+            raise AssertionError(f"the wide forward accepted {what}")
     head = next(r for r in rows if r["shape"] == GENERAL_HEAD_LABEL)
     return {"rows": rows, "max_abs": max_abs, "head": head}
+
+
+def _wide_check(q, k, v, do, causal, scale, o_ref, lse_ref, timed: bool) -> dict:
+    """The wide forward and the wide backward (the general dQ, then the
+    wide dK/dV) against the plain versions on the same inputs (``O_TOL``
+    absolute, ``LSE_TOL``, dQ/dK/dV within ``GRAD_REL_TOL`` of the largest
+    value); dK/dV run twice must agree bitwise (no atomics). ``timed``
+    adds the wide forward's and dK/dV's times."""
+    from ray_tpu_torch.ops import attention as att
+
+    o, lse = att.flash_forward_wide_cuda(q, k, v, causal, scale)
+    dq, delta = att.flash_general_dq_cuda(q, k, v, o, lse, do, causal, scale)
+    runs = [att.flash_bwd_dkv_wide_cuda(q, k, v, do, lse, delta, causal, scale)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    ref = att.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                        do.float(), causal, scale)
+    _, o_abs, lse_err = _fwd_errors(o, lse, o_ref, lse_ref)
+    row = {"fwd_abs_err": o_abs, "o_tol": O_TOL, "lse_err": lse_err, "lse_tol": LSE_TOL,
+           "grad_rel_tol": GRAD_REL_TOL,
+           "dkv_bitwise_repeatable": all(torch.equal(a, b) for a, b in zip(*runs))}
+    ok = (bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all()) and o_abs <= O_TOL
+          and lse_err <= LSE_TOL and row["dkv_bitwise_repeatable"])
+    dkv_abs = 0.0
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, *runs[0]), ref):
+        err = (got.float() - want).abs().max().item()
+        row[f"{name}_abs_err"] = err
+        row[f"{name}_rel_err"] = err / max(want.abs().max().item(), 1e-30)
+        ok = ok and bool(torch.isfinite(got).all()) and got.shape == want.shape and (
+            row[f"{name}_rel_err"] <= GRAD_REL_TOL)
+        if name != "dq":
+            dkv_abs = max(dkv_abs, err)
+    row["dkv_abs_err"] = dkv_abs
+    if timed:
+        row["fwd_ms"] = time_ms(lambda: att.flash_forward_wide_cuda(q, k, v, causal, scale))
+        row["dkv_ms"] = time_ms(lambda: att.flash_bwd_dkv_wide_cuda(q, k, v, do, lse, delta,
+                                                                     causal, scale))
+    row["ok"] = ok
+    return row
 
 
 def profile_pass(eng, prompts, n_new, label: str, card: str) -> dict:
@@ -794,12 +908,14 @@ def profile_pass(eng, prompts, n_new, label: str, card: str) -> dict:
     return profile_step(lambda: eng.generate_batch(prompts, n_new), label, card)
 
 
-def train_config(remat_policy: str = "full"):
-    """The 750M flagship config of ``bench.py:67-77``: full width, full depth."""
+def train_config(remat_policy: str = "full", n_heads: int = 18):
+    """The 750M flagship config of ``bench.py:67-77``: full width, full depth;
+    ``n_heads`` q and kv heads (18 of 128 there; 9 of 256 take the wide
+    route)."""
     from ray_tpu_torch.models import transformer as tf
 
-    return tf.TransformerConfig(vocab_size=32000, d_model=2304, n_layers=10, n_heads=18,
-                                n_kv_heads=18, d_ff=5760, max_seq_len=2048,
+    return tf.TransformerConfig(vocab_size=32000, d_model=2304, n_layers=10, n_heads=n_heads,
+                                n_kv_heads=n_heads, d_ff=5760, max_seq_len=2048,
                                 dtype=torch.bfloat16, remat=True, remat_policy=remat_policy)
 
 
@@ -809,7 +925,8 @@ def _counted():
 
     return {"fwd": att.flash_attention, "dq": att.flash_bwd_dq_cuda,
             "dkv": att.flash_bwd_dkv_cuda, "general_fwd": att.flash_general_forward_cuda,
-            "general_dq": att.flash_general_dq_cuda, "general_dkv": att.flash_general_dkv_cuda}
+            "general_dq": att.flash_general_dq_cuda, "general_dkv": att.flash_general_dkv_cuda,
+            "wide_fwd": att.flash_forward_wide_cuda, "wide_dkv": att.flash_bwd_dkv_wide_cuda}
 
 
 def launch_counts():
@@ -822,8 +939,22 @@ def reset_launch_counts():
 
 
 def no_general(per_step: dict) -> dict:
-    """``per_step`` Hopper launches and no general ones."""
-    return {**per_step, "general_fwd": 0, "general_dq": 0, "general_dkv": 0}
+    """``per_step`` Hopper launches and no general or wide ones."""
+    return {**per_step, "general_fwd": 0, "general_dq": 0, "general_dkv": 0, "wide_fwd": 0,
+            "wide_dkv": 0}
+
+
+def train_launches_per_step(cfg, policy: str) -> dict:
+    """The kernels one train step launches: each layer's forward twice
+    under "full" and "dots" (forward and recompute), once under "attn",
+    one dQ and one dK/dV; on the Hopper route up to head dim 128, else on
+    the wide route (its dQ is the general kernel)."""
+    L = cfg.n_layers
+    fwd = (1 if policy == "attn" else 2) * L
+    if cfg.head_dim <= 128:
+        return no_general({"fwd": fwd, "dq": L, "dkv": L})
+    return {**no_general({"fwd": 0, "dq": 0, "dkv": 0}), "wide_fwd": fwd, "general_dq": L,
+            "wide_dkv": L}
 
 
 def profile_step(fn, label: str, card: str) -> dict:
@@ -853,11 +984,12 @@ def profile_step(fn, label: str, card: str) -> dict:
         "top_kernels": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
                          "share": e.self_device_time_total / max(busy_us, 1e-9),
                          "count": e.count} for e in top],
-        # The port's own kernels, wherever they rank.
-        "flash_kernels": {e.key.split("<")[0].split("::")[-1]: {
+        # The port's own kernels (Hopper, wide and general), wherever they rank.
+        "flash_kernels": {name: {
             "ms": e.self_device_time_total / 1e3, "count": e.count,
             "share": e.self_device_time_total / max(busy_us, 1e-9)}
-            for e in events if "flash_" in e.key},
+            for e in events
+            if (name := e.key.split("<")[0].split("::")[-1]).startswith(("flash_", "general_"))},
     }
     log(f"[profile] {label} on {card}: " + json.dumps(out))
     return out
@@ -869,18 +1001,20 @@ def profile_step(fn, label: str, card: str) -> dict:
 POLICY_LOSS_REL_TOL = 1e-3
 
 
-def training_phase(card: str, smi: str, policy: str = "full", profile: bool = False) -> dict:
-    """``make_train_step`` on the 750M config under remat ``policy``, batch
-    12 x 2048, 2 warm-up and 8 timed steps, with the exact launch counts of
-    every step (20/10/10 Hopper launches under "full" and "dots", 10/10/10
-    under "attn", no general launch)."""
+def training_phase(card: str, smi: str, policy: str = "full", profile: bool = False,
+                   n_heads: int = 18, warmup: int = 2, steps: int = 8) -> dict:
+    """``make_train_step`` on the 750M config with ``n_heads`` heads under
+    remat ``policy``, batch 12 x 2048, ``warmup`` warm-up and ``steps``
+    timed steps, with the exact launch counts of every step
+    (``train_launches_per_step``: at 18 heads 20/10/10 Hopper launches
+    under "full" and "dots", 10/10/10 under "attn", no general launch)."""
     from ray_tpu_torch.models import transformer as tf
     from ray_tpu_torch.parallel import make_optimizer, make_train_state, make_train_step
     from ray_tpu_torch.parallel.train_step import param_leaves
 
     dev = torch.device("cuda")
-    cfg = train_config(policy)
-    batch_size, seq, warmup, steps = 12, 2048, 2, 8
+    cfg = train_config(policy, n_heads)
+    batch_size, seq = 12, 2048
     torch.cuda.empty_cache()
     opt = make_optimizer(lr=3e-4, warmup=10)
     torch.cuda.reset_peak_memory_stats()
@@ -893,8 +1027,7 @@ def training_phase(card: str, smi: str, policy: str = "full", profile: bool = Fa
                            generator=torch.Generator(device=dev).manual_seed(1))
     batch = {"tokens": tokens}
     step = make_train_step(cfg, opt)
-    per_step = no_general({"fwd": (1 if policy == "attn" else 2) * cfg.n_layers,
-                           "dq": cfg.n_layers, "dkv": cfg.n_layers})
+    per_step = train_launches_per_step(cfg, policy)
     losses, gnorms, step_s = [], [], []
     reset_launch_counts()
     for i in range(warmup + steps):
@@ -910,8 +1043,8 @@ def training_phase(card: str, smi: str, policy: str = "full", profile: bool = Fa
         got = {k: after[k] - before[k] for k in after}
         if got != per_step:
             raise AssertionError(f"step {i}: launches {got} != {per_step}")
-        log(f"[train] {policy} step {i}: loss {loss:.6f} grad_norm {gnorm:.6f} "
-            f"{step_s[-1] * 1e3:.1f} ms launches {got}")
+        log(f"[train] {policy} {cfg.n_heads}x{cfg.head_dim} step {i}: loss {loss:.6f} "
+            f"grad_norm {gnorm:.6f} {step_s[-1] * 1e3:.1f} ms launches {got}")
     launches = launch_counts()
     if not all(math.isfinite(x) for x in losses + gnorms):
         raise AssertionError(f"non-finite loss or grad norm: {losses} {gnorms}")
@@ -922,8 +1055,9 @@ def training_phase(card: str, smi: str, policy: str = "full", profile: bool = Fa
     flops_peak, _ = peaks(card)
     tokens_per_step = batch_size * seq
     result = {
-        "config": "750M flagship (bench.py): vocab 32000, d_model 2304, 10 layers, 18 heads, "
-                  f"18 kv heads, d_ff 5760, bf16 compute, fp32 params + AdamW, remat {policy}",
+        "config": "750M flagship (bench.py): vocab 32000, d_model 2304, 10 layers, "
+                  f"{cfg.n_heads} heads, {cfg.n_kv_heads} kv heads of {cfg.head_dim}, d_ff 5760, "
+                  f"bf16 compute, fp32 params + AdamW, remat {policy}",
         "remat_policy": policy,
         "params": n_params, "batch": batch_size, "seq": seq, "steps_timed": steps,
         "step_ms_mean": mean_s * 1e3, "step_ms_min": min(timed) * 1e3,
@@ -935,7 +1069,7 @@ def training_phase(card: str, smi: str, policy: str = "full", profile: bool = Fa
         "losses": losses, "grad_norms": gnorms, "launches": launches,
         "launches_per_step": per_step, "card": smi,
     }
-    log(f"[train] {policy} on {card}: " + json.dumps(result))
+    log(f"[train] {policy} {cfg.n_heads}x{cfg.head_dim} on {card}: " + json.dumps(result))
     if profile:
         result["profile"] = profile_step(lambda: step(params, opt_state, batch),
                                          f"train step ({policy})", card)
@@ -944,15 +1078,17 @@ def training_phase(card: str, smi: str, policy: str = "full", profile: bool = Fa
     return result
 
 
-def grad_check_phase(card: str) -> dict:
-    """Loss and every gradient of the 750M model on one 1 x 2048 batch,
-    through the kernels and through plain attention under autograd."""
+def grad_check_phase(card: str, n_heads: int = 18) -> dict:
+    """Loss and every gradient of the 750M model (``n_heads`` heads) on one
+    1 x 2048 batch, through the kernels and through plain attention under
+    autograd; the kernels' run launches one dQ a layer and nothing off its
+    route (``train_launches_per_step``)."""
     from ray_tpu_torch.models import transformer as tf
     from ray_tpu_torch.ops import attention as att
     from ray_tpu_torch.parallel.train_step import global_norm, param_leaves
 
     dev = torch.device("cuda")
-    cfg = train_config()
+    cfg = train_config(n_heads=n_heads)
     params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(2), device=dev)
     leaves = param_leaves(params)
     for p in leaves:
@@ -974,7 +1110,10 @@ def grad_check_phase(card: str) -> dict:
     lk, gk = loss_and_grads(None)
     counts = launch_counts()
     lp, gp = loss_and_grads(plain_attn)
-    if launch_counts() != counts or counts["dq"] != cfg.n_layers:
+    route = train_launches_per_step(cfg, "full")
+    dq_key = "dq" if route["dq"] else "general_dq"
+    if launch_counts() != counts or counts[dq_key] != cfg.n_layers or any(
+            counts[key] for key, n in route.items() if n == 0):
         raise AssertionError(f"kernel launches {counts}, then {launch_counts()} under plain")
 
     nk, np_ = global_norm(gk).item(), global_norm(gp).item()
@@ -986,8 +1125,8 @@ def grad_check_phase(card: str) -> dict:
               "grad_norm_rel_err": abs(nk - np_) / np_, "grad_cos_min": min(cos),
               "loss_rel_tol": TRAIN_LOSS_REL_TOL, "grad_norm_rel_tol": TRAIN_GNORM_REL_TOL,
               "grad_cos_min_allowed": TRAIN_GRAD_COS_MIN, "launches": counts}
-    log(f"[gradcheck] 750M, 1 x 2048, kernels vs plain attention on {card}: "
-        + json.dumps(result))
+    log(f"[gradcheck] 750M ({cfg.n_heads} heads of {cfg.head_dim}), 1 x 2048, kernels vs "
+        f"plain attention on {card}: " + json.dumps(result))
     if not (finite and result["loss_rel_err"] <= TRAIN_LOSS_REL_TOL
             and result["grad_norm_rel_err"] <= TRAIN_GNORM_REL_TOL
             and result["grad_cos_min"] >= TRAIN_GRAD_COS_MIN):
@@ -995,6 +1134,22 @@ def grad_check_phase(card: str) -> dict:
     del params, leaves, gk, gp
     torch.cuda.empty_cache()
     return result
+
+
+# The wide-head flagship: 9 q and 9 kv heads of 256 (d_model 2304 / 9), 1
+# warm-up and 4 timed steps.
+WIDE_HEADS = 9
+
+
+def wide_training_phase(card: str, smi: str, profile: bool = False) -> dict:
+    """The wide-head flagship trains through the wide route: 5 steps of
+    ``training_phase`` (the loss falls; 20 wide forwards, 10 general dQ and
+    10 wide dK/dV launches a step and nothing else; ``profile`` adds a
+    profiled step), then its gradient check against plain attention."""
+    run = training_phase(card, smi, "full", profile=profile, n_heads=WIDE_HEADS, warmup=1,
+                         steps=4)
+    grads = grad_check_phase(card, n_heads=WIDE_HEADS)
+    return {"train": run, "grad_check": grads}
 
 
 # fp32 model, kernels (general route) vs plain attention: fp32 on both sides
@@ -1036,7 +1191,7 @@ def fp32_training_phase(card: str) -> dict:
         losses.append(float(m["loss"]))
     launches = launch_counts()
     want = {"fwd": 0, "dq": 0, "dkv": 0, "general_fwd": 2 * L * steps, "general_dq": L * steps,
-            "general_dkv": L * steps}
+            "general_dkv": L * steps, "wide_fwd": 0, "wide_dkv": 0}
     if launches != want:
         raise AssertionError(f"fp32 training launches {launches} != {want}")
 
@@ -3635,13 +3790,16 @@ def parallel_steps(step, params, state, batch, steps: int, launches: bool) -> di
     return out
 
 
-def parallel_rank(rank: int, world: int, port: int, name: str, plan_kw: dict, model: str,
-                  microbatches: int, results):
-    """One rank of a plan on cuda:0 (a process of its own; ``results`` a
-    queue): its mesh over gloo, its shards drawn straight from the bare
-    step's seeds, PARALLEL_STEPS steps on its rows."""
+def parallel_rank(rank: int, world: int, port: int, plans: list, results):
+    """One rank of each of ``plans`` (all of one world size) on cuda:0, plan
+    after plan in one process (``results`` a queue; one answer a plan): the
+    plan's mesh over gloo, its shards drawn straight from the bare step's
+    seeds, PARALLEL_STEPS steps on its rows; then everything of the plan is
+    freed before the next. One spawn for every plan of a world size spares
+    each plan a process start (an import of torch, CUDA and gloo set-up)."""
     import datetime
     import faulthandler
+    import gc
 
     import torch.distributed as dist
 
@@ -3655,22 +3813,28 @@ def parallel_rank(rank: int, world: int, port: int, name: str, plan_kw: dict, mo
         torch.cuda.set_device(dev)
         dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                                 world_size=world, timeout=datetime.timedelta(seconds=300))
-        mesh = build_mesh(MeshPlan(**plan_kw), device=dev)
-        cfg = parallel_config(model)
-        opt = make_optimizer(lr=3e-4, warmup=10)
-        torch.cuda.reset_peak_memory_stats()
-        params, state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
-                                         device=dev, optimizer=opt, mesh=mesh)
-        batch = mesh_lib.shard_batch(parallel_batch(dev), mesh)
-        step = make_train_step(cfg, opt, mesh=mesh, num_microbatches=microbatches)
-        out = parallel_steps(step, params, state, batch, PARALLEL_STEPS, launches=True)
-        out.update(rank=rank, coords=mesh.coords, backend=mesh.backend,
-                   staged_bytes=mesh.staging.bytes,
-                   gloo_device_bytes=mesh.staging.device_bytes,
-                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-                   local_batch=list(batch["tokens"].shape))
+        for name, plan_kw, model, microbatches in plans:
+            t0 = time.perf_counter()
+            mesh = build_mesh(MeshPlan(**plan_kw), device=dev)
+            cfg = parallel_config(model)
+            opt = make_optimizer(lr=3e-4, warmup=10)
+            torch.cuda.reset_peak_memory_stats()
+            params, state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                                             device=dev, optimizer=opt, mesh=mesh)
+            batch = mesh_lib.shard_batch(parallel_batch(dev), mesh)
+            step = make_train_step(cfg, opt, mesh=mesh, num_microbatches=microbatches)
+            out = parallel_steps(step, params, state, batch, PARALLEL_STEPS, launches=True)
+            out.update(plan=name, rank=rank, coords=mesh.coords, backend=mesh.backend,
+                       staged_bytes=mesh.staging.bytes,
+                       gloo_device_bytes=mesh.staging.device_bytes,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       local_batch=list(batch["tokens"].shape),
+                       seconds=time.perf_counter() - t0)
+            results.put(out)
+            del mesh, params, state, batch, step
+            gc.collect()
+            torch.cuda.empty_cache()
         dist.destroy_process_group()
-        results.put(out)
     except BaseException as e:  # noqa: BLE001 — reported to the parent, which fails
         import traceback
 
@@ -3686,9 +3850,11 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(label: str, target, world: int, *args, timeout_s: float = 300) -> list:
+def run_ranks(label: str, target, world: int, *args, timeout_s: float = 300,
+              answers: int = 1) -> list:
     """Spawn ``world`` processes of ``target(rank, world, port, *args,
-    results)`` and wait for every one; their results by rank."""
+    results)`` and wait for every one's ``answers`` results; the results by
+    rank, each rank's in the order it gave them."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -3703,7 +3869,7 @@ def run_ranks(label: str, target, world: int, *args, timeout_s: float = 300) -> 
         deadline = time.monotonic() + timeout_s
         # Every rank's answer, or its exit (a rank that dies in native code
         # answers nothing: its peers' errors then only say it went away).
-        while len(out) < world and time.monotonic() < deadline:
+        while len(out) < world * answers and time.monotonic() < deadline:
             try:
                 out.append(results.get(timeout=2.0))
             except Exception:  # noqa: BLE001 — queue.Empty: look at the processes
@@ -3718,20 +3884,23 @@ def run_ranks(label: str, target, world: int, *args, timeout_s: float = 300) -> 
                 p.kill()
                 p.join()
     errors = [r for r in out if "error" in r]
-    if errors or len(out) < world:
+    if errors or len(out) < world * answers:
         raise AssertionError(
             f"{label}: exit codes {[p.exitcode for p in procs]}, "
-            f"{len(out)} of {world} ranks answered; errors:\n"
+            f"{len(out)} of {world * answers} answers; errors:\n"
             + "\n".join(f"rank {r['rank']}: {r['error']}" for r in errors))
     return sorted(out, key=lambda r: r["rank"])
 
 
-def run_plan_ranks(name: str, plan_kw: dict, model: str, microbatches: int) -> list:
-    """Spawn the plan's ranks, wait for every one; their results by rank."""
+def run_plan_ranks(plans: list) -> dict:
+    """Spawn the ranks of ``plans`` (all of one world size) once, wait for
+    every plan's answers; plan name -> its results by rank."""
     from ray_tpu_torch.parallel import MeshPlan
 
-    return run_ranks(f"[parallel] {name}", parallel_rank, MeshPlan(**plan_kw).num_devices,
-                     name, plan_kw, model, microbatches)
+    world = MeshPlan(**plans[0][1]).num_devices
+    out = run_ranks(f"[parallel] {[p[0] for p in plans]}", parallel_rank, world, plans,
+                    timeout_s=300 * len(plans), answers=len(plans))
+    return {name: [r for r in out if r["plan"] == name] for name, *_ in plans}
 
 
 def local_shape_kernel_check(shapes) -> list:
@@ -3794,10 +3963,17 @@ def parallel_phase(card: str, smi: str) -> dict:
     dense = train_config("full")
     per_step = no_general({"fwd": 2 * dense.n_layers, "dq": dense.n_layers,
                            "dkv": dense.n_layers})
+    from ray_tpu_torch.parallel import MeshPlan
+
+    by_world = {}
+    for plan in PARALLEL_PLANS:
+        by_world.setdefault(MeshPlan(**plan[1]).num_devices, []).append(plan)
+    ranks_of = {}
+    for group in by_world.values():
+        ranks_of.update(run_plan_ranks(group))
     plans = {}
     for name, plan_kw, model, mb in PARALLEL_PLANS:
-        t0 = time.perf_counter()
-        ranks = run_plan_ranks(name, plan_kw, model, mb)
+        ranks = ranks_of[name]
         ref = bare[model]
         want = no_general({"fwd": 0, "dq": 0, "dkv": 0}) if name == "sp2_ring" else per_step
         loss_tol, gnorm_tol = PARALLEL_REL_TOL[name]
@@ -3817,7 +3993,8 @@ def parallel_phase(card: str, smi: str) -> dict:
             "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in ranks],
             "staged_bytes_per_rank": [r["staged_bytes"] for r in ranks],
             "gloo_device_bytes_per_rank": [r["gloo_device_bytes"] for r in ranks],
-            "local_batch": ranks[0]["local_batch"], "seconds": time.perf_counter() - t0,
+            "local_batch": ranks[0]["local_batch"],
+            "seconds": max(r["seconds"] for r in ranks),  # in the ranks, their start apart
         }
         plans[name] = row
         log(f"[parallel] {name} on {smi} (step ms are of ranks sharing one card: no "
@@ -4095,7 +4272,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true", help="build + kernel phases only")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile a training step, a prefill, a decode pass and a ViT step")
+                    help="also profile a training step (18 and 9 heads), a prefill, a decode "
+                         "pass and a ViT step")
     ap.add_argument("--rl-only", action="store_true",
                     help="only the RL phases (12, 13), on their own port cluster (no kernel build)")
     ap.add_argument("--vit-only", action="store_true",
@@ -4112,6 +4290,9 @@ def main() -> int:
     ap.add_argument("--mpmd-only", action="store_true",
                     help="only the kernel build and the MPMD phase (18): the 750M flagship "
                          "over 2 stages, in one process and as a 2-rank gang sharing the card")
+    ap.add_argument("--wide-only", action="store_true",
+                    help="only the kernel build, the general-kernel phase (4, with the wide "
+                         "kernels) and the wide-head flagship (7)")
     ap.add_argument("--cli-job", action="store_true",
                     help="run as the CLI phase's submitted job (cli_job_main), not as the smoke")
     args = ap.parse_args()
@@ -4153,6 +4334,11 @@ def main() -> int:
         _build.build_all()
         mpmd_phase(card, smi, profile=args.profile)
         return 0
+    if args.wide_only:
+        _build.build_all()
+        general_kernel_phase(card)
+        wide_training_phase(card, smi, profile=args.profile)
+        return 0
     if args.cli_only:
         thread_launch_check()
         full = training_phase(card, smi, "full")
@@ -4187,6 +4373,7 @@ def main() -> int:
     parallel_launches = {key: None for key in _counted()}
     mpmd_launches = {key: None for key in _counted()}
     cli_launches = autoscaled_launches = {key: None for key in ("fwd", "dq", "dkv")}
+    wide_launches = {key: None for key in _counted()}
     by_policy = {}
     if not args.kernels_only:
         runs = {policy: training_phase(card, smi, policy, profile=args.profile)
@@ -4221,6 +4408,8 @@ def main() -> int:
             for key in _counted()}
         general_launches = fp32_training_phase(card)["launches"]
         grad_check_phase(card)
+        wide = wide_training_phase(card, smi, profile=args.profile)
+        wide_launches = wide["train"]["launches"]
         sl = slice_phase(card, profile=args.profile)
         serving_launches = sl["main"]["flash_fwd_launches"]
         torch.cuda.empty_cache()
@@ -4254,12 +4443,35 @@ def main() -> int:
                    ghead["shape"], smi, sass=sass["flash_general"], note=general_note,
                    parallel_launches=parallel_launches[f"general_{kind}"],
                    mpmd_launches=mpmd_launches[f"general_{kind}"],
+                   wide_training_launches=wide_launches[f"general_{kind}"],
                    shapes=[{"shape": r["shape"], "ms": r[f"{kind}_ms"],
                             "bound_ms": r[f"{kind}_bound_ms"],
                             "plain_ms": r["plain_fwd_ms" if kind == "fwd" else "plain_bwd_ms"],
                             "library_ms": r["library_fwd_ms" if kind == "fwd"
                                             else "library_bwd_ms"]} for r in gen["rows"]])
         for kind, line in (("fwd", 56), ("dq", 201), ("dkv", 262))]
+    wide_rows = [
+        kernel_row(f"flash_{name}", f"ray_tpu_torch/ops/csrc/flash_{name}.cu",
+                   f"ray_tpu/ops/attention.py:{line}", wide_launches[f"wide_{kind}"],
+                   gen["max_abs"][f"wide_{kind}"], ghead["wide"][f"{kind}_ms"],
+                   ghead["plain_fwd_ms" if kind == "fwd" else "plain_bwd_ms"],
+                   (ghead[f"{kind}_bound_ms"], ghead[f"{kind}_bound_by"]),
+                   ghead["library_fwd_ms" if kind == "fwd" else "library_bwd_ms"],
+                   ghead["shape"], smi, sass=sass[f"flash_{name}"],
+                   earlier_ms=ghead[f"{kind}_ms"],
+                   note="launches: the wide-head flagship's 5 training steps; earlier_ms: the "
+                        "general kernel at the same shape"
+                        + ("" if kind == "fwd" else "; plain_ms and library_ms cover the whole "
+                                                    "backward"),
+                   parallel_launches=parallel_launches[f"wide_{kind}"],
+                   mpmd_launches=mpmd_launches[f"wide_{kind}"],
+                   shapes=[{"shape": r["shape"], "ms": r["wide"][f"{kind}_ms"],
+                            "bound_ms": r[f"{kind}_bound_ms"],
+                            "earlier_ms": r[f"{kind}_ms"],
+                            "library_ms": r["library_fwd_ms" if kind == "fwd"
+                                            else "library_bwd_ms"]}
+                           for r in gen["rows"] if "wide" in r])
+        for name, kind, line in (("fwd_wide", "fwd", 56), ("bwd_dkv_wide", "dkv", 262))]
     by_policy_launches = {policy: row["launches_per_step"] for policy, row in by_policy.items()}
     kernels = [
         kernel_row("flash_fwd", "ray_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -4315,7 +4527,7 @@ def main() -> int:
                    gqa_bound_ms=bgqa["dkv_bound_ms"], gqa_plain_ms=bgqa["plain_ms"],
                    gqa_library_ms=bgqa["library_ms"],
                    note="plain_ms and library_ms cover the whole backward (dq, dk, dv)"),
-    ] + general_rows
+    ] + general_rows + wide_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}), flush=True)

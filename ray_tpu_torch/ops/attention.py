@@ -11,14 +11,18 @@ and never materialise repeated K/V.
   → (dq, dk, dv) (the port of the JAX ``custom_vjp``; as ops they are
   opaque to the dispatcher, so a selective checkpoint policy can save
   their outputs). On CUDA tensors each op runs hand-written ``sm_90a``
-  kernels (built at first launch) on one of two routes, chosen by
-  ``_kernel_route`` from dtype, head dim and scale: the Hopper kernels
-  (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` for dQ,
-  ``csrc/flash_bwd_dkv.cu`` for dK/dV; bf16/fp16, head dim a multiple of
-  16 up to 128) or the general ones (``csrc/flash_general.cu``; fp32,
-  bf16 or fp16, head dim up to 256). On CPU tensors the ops run the plain
-  versions. A CUDA input neither route takes raises; nothing falls back
-  to the plain version on the card.
+  kernels (built at first launch) on one of three routes, chosen by
+  ``_kernel_route`` from dtype, head dim and scale:
+  - "hopper" (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` for dQ,
+    ``csrc/flash_bwd_dkv.cu`` for dK/dV): bf16/fp16, head dim a multiple
+    of 16 up to 128, scale > 0;
+  - "hopper_wide" (``csrc/flash_fwd_wide.cu``, the general dQ kernel,
+    ``csrc/flash_bwd_dkv_wide.cu``): bf16/fp16, head dim a multiple of 16
+    in 144-256, scale > 0;
+  - "general" (``csrc/flash_general.cu``, SIMT): everything else up to
+    head dim 256 (fp32, head dims off the 16 grid, scale <= 0).
+  On CPU tensors the ops run the plain versions. A CUDA input no route
+  takes raises; nothing falls back to the plain version on the card.
 - ``flash_attention_plain`` / ``flash_attention_bwd_plain``: the kernels'
   functions in plain PyTorch, with the kernels' TOP-LEFT causal
   convention (``q_id >= k_id``, as ``_flash_fwd_kernel`` and the backward
@@ -38,6 +42,10 @@ import torch
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float16)
+# The routes whose kernels are built on TMA and wgmma (16-byte aligned
+# 16-bit inputs), and the head dims the wide one takes.
+_TMA_ROUTES = ("hopper", "hopper_wide")
+WIDE_MIN_HEAD_DIM = 144
 # The general kernels' element types, by the code their entry points take.
 _GENERAL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 GENERAL_MAX_HEAD_DIM = 256
@@ -130,34 +138,39 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool, scale: float):
 
 
 def _kernel_route(q, k, scale: float) -> str:
-    """Which kernels take these inputs on the card: ``"hopper"`` (the TMA/
-    ``wgmma`` kernels of ``csrc/flash_fwd.cu``, ``flash_bwd.cu`` and
-    ``flash_bwd_dkv.cu``) for bf16/fp16 q and k of one dtype, a head dim
-    that is a multiple of 16 up to 128, and ``scale > 0``; ``"general"``
+    """Which kernels take these inputs on the card. For bf16/fp16 q and k
+    of one dtype, a head dim that is a multiple of 16 and ``scale > 0``:
+    ``"hopper"`` up to head dim 128 (the TMA/``wgmma`` kernels of
+    ``csrc/flash_fwd.cu``, ``flash_bwd.cu`` and ``flash_bwd_dkv.cu``) and
+    ``"hopper_wide"`` in 144-256 (``csrc/flash_fwd_wide.cu`` and
+    ``flash_bwd_dkv_wide.cu``, with the general dQ kernel); ``"general"``
     (``csrc/flash_general.cu``) for every other input. A pure function of
-    shape, dtype and scale: it is not a fallback, and either route raises
-    on a failed build or launch. Raises above head dim 256, which neither
-    route takes (the reference's Pallas kernels take any head dim)."""
+    shape, dtype and scale: it is not a fallback, and every route raises
+    on a failed build or launch. Raises above head dim 256, which no route
+    takes (the reference's Pallas kernels take any head dim)."""
     hd = q.shape[-1]
     if hd > GENERAL_MAX_HEAD_DIM:
         raise ValueError(f"flash_attention kernels: head_dim {hd} > {GENERAL_MAX_HEAD_DIM}")
-    if (q.dtype in _KERNEL_DTYPES and k.dtype == q.dtype and hd % 16 == 0 and hd <= 128
-            and scale > 0):
-        return "hopper"
+    if q.dtype in _KERNEL_DTYPES and k.dtype == q.dtype and hd % 16 == 0 and scale > 0:
+        if hd <= 128:
+            return "hopper"
+        if hd >= WIDE_MIN_HEAD_DIM:
+            return "hopper_wide"
     return "general"
 
 
 def _check_kernel_inputs(q, k, v, route: str = "hopper"):
     """q/k/v as the ``route``'s kernels take them: one CUDA device, one
-    dtype (bf16/fp16 for "hopper"; fp32, bf16 or fp16 for "general"),
-    GQA-compatible 4-D shapes, the route's head dims, contiguous (and
-    16-byte aligned for the Hopper kernels' TMA loads)."""
+    dtype (bf16/fp16 for "hopper" and "hopper_wide"; fp32, bf16 or fp16
+    for "general"), GQA-compatible 4-D shapes, the route's head dims,
+    contiguous (and 16-byte aligned for the TMA loads of the Hopper
+    routes)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(
             f"flash_attention: q, k, v must share one CUDA device "
             f"(got {q.device}, {k.device}, {v.device})"
         )
-    dtypes = _KERNEL_DTYPES if route == "hopper" else tuple(_GENERAL_DTYPES)
+    dtypes = _KERNEL_DTYPES if route in _TMA_ROUTES else tuple(_GENERAL_DTYPES)
     if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"flash_attention {route} kernels take q/k/v of one dtype in {dtypes} "
@@ -170,13 +183,16 @@ def _check_kernel_inputs(q, k, v, route: str = "hopper"):
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)}")
     if route == "hopper" and (hd % 16 or hd > 128):
         raise ValueError(f"flash_attention kernel: head_dim {hd} must be a multiple of 16, <= 128")
+    if route == "hopper_wide" and (hd % 16 or not WIDE_MIN_HEAD_DIM <= hd <= GENERAL_MAX_HEAD_DIM):
+        raise ValueError(f"flash_attention wide kernels: head_dim {hd} must be a multiple of 16 "
+                         f"in [{WIDE_MIN_HEAD_DIM}, {GENERAL_MAX_HEAD_DIM}]")
     if not 0 < hd <= GENERAL_MAX_HEAD_DIM:
         raise ValueError(f"flash_attention general kernels: head_dim {hd} must be in "
                          f"[1, {GENERAL_MAX_HEAD_DIM}]")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention kernel: {name} must be contiguous")
-        if route == "hopper" and t.data_ptr() % 16:
+        if route in _TMA_ROUTES and t.data_ptr() % 16:
             raise ValueError(f"flash_attention kernel: {name} must be 16-byte aligned")
 
 
@@ -246,7 +262,7 @@ def flash_forward_cuda(q, k, v, causal: bool, scale: float):
 def _check_bwd_inputs(q, k, v, like_q: dict, rows: dict, route: str = "hopper"):
     """q/k/v as the forward takes them; ``like_q`` tensors of q's shape and
     dtype and fp32 ``rows`` of ``[b, H, q_len]``, all contiguous (and
-    16-byte aligned for the Hopper kernels) on q's device."""
+    16-byte aligned for the Hopper routes' kernels) on q's device."""
     _check_kernel_inputs(q, k, v, route)
     for name, t in like_q.items():
         if t.shape != q.shape or t.dtype != q.dtype:
@@ -258,9 +274,9 @@ def _check_bwd_inputs(q, k, v, like_q: dict, rows: dict, route: str = "hopper"):
                              f"got {t.dtype} {tuple(t.shape)}")
     for name, t in {**like_q, **rows}.items():
         if t.device != q.device or not t.is_contiguous() or (
-                route == "hopper" and t.data_ptr() % 16):
+                route in _TMA_ROUTES and t.data_ptr() % 16):
             raise ValueError(f"flash backward: {name} must be a contiguous "
-                             f"{'16-byte aligned ' if route == 'hopper' else ''}tensor on "
+                             f"{'16-byte aligned ' if route in _TMA_ROUTES else ''}tensor on "
                              f"{q.device}")
     if q.shape[2] == 0 or k.shape[2] == 0:
         raise ValueError("flash backward kernels: q_len and k_len must be > 0")
@@ -353,8 +369,50 @@ def flash_general_backward_cuda(q, k, v, o, lse, do, causal: bool, scale: float)
     return dq, dk, dv
 
 
+def flash_forward_wide_cuda(q, k, v, causal: bool, scale: float):
+    """Launch the wide forward kernel (``csrc/flash_fwd_wide.cu``) → (o,
+    lse): bf16/fp16, head dim a multiple of 16 in 144-256, scale > 0;
+    counts its launches in ``flash_forward_wide_cuda.launches``."""
+    _check_kernel_inputs(q, k, v, "hopper_wide")
+    if not scale > 0:
+        raise ValueError(f"flash_attention wide kernel: scale must be > 0, got {scale}")
+    o, lse = _fwd_outputs(q, k)
+    if q.shape[2] == 0:
+        return o, lse
+    _launch("flash_fwd_wide", "flash_fwd_wide", (q, k, v, o, lse),
+            _shape_args(q, k, causal, scale, int(q.dtype == torch.bfloat16)))
+    flash_forward_wide_cuda.launches += 1
+    return o, lse
+
+
+def flash_bwd_dkv_wide_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """Launch the wide dK/dV kernel (``csrc/flash_bwd_dkv_wide.cu``) → (dk,
+    dv), kv-head shaped, as ``flash_bwd_dkv_cuda``; counts its launches in
+    ``flash_bwd_dkv_wide_cuda.launches``. ``delta`` is the one
+    ``flash_general_dq_cuda`` returns."""
+    _check_bwd_inputs(q, k, v, {"do": do}, {"lse": lse, "delta": delta}, "hopper_wide")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd_dkv_wide", "flash_bwd_dkv_wide", (q, k, v, do, lse, delta, dk, dv),
+            _shape_args(q, k, causal, scale, int(q.dtype == torch.bfloat16)))
+    flash_bwd_dkv_wide_cuda.launches += 1
+    return dk, dv
+
+
+def flash_backward_wide_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
+    """The backward on the card at wide heads → (dq, dk, dv), as
+    ``flash_backward_cuda``: the general dQ kernel (dQ and Δ), then the
+    wide dK/dV kernel."""
+    _check_kernel_inputs(q, k, v, "hopper_wide")
+    if q.shape[2] == 0:
+        return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq, delta = flash_general_dq_cuda(q, k, v, o, lse, do, causal, scale)
+    dk, dv = flash_bwd_dkv_wide_cuda(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
 for _wrapper in (flash_bwd_dq_cuda, flash_bwd_dkv_cuda, flash_general_forward_cuda,
-                 flash_general_dq_cuda, flash_general_dkv_cuda):
+                 flash_general_dq_cuda, flash_general_dkv_cuda, flash_forward_wide_cuda,
+                 flash_bwd_dkv_wide_cuda):
     _wrapper.launches = 0
 
 
@@ -380,10 +438,14 @@ def _flash_fwd_cpu(q, k, v, causal, scale):
     return flash_attention_plain(q, k, v, causal, scale)
 
 
+_FORWARD_BY_ROUTE = {"hopper": flash_forward_cuda, "hopper_wide": flash_forward_wide_cuda,
+                     "general": flash_general_forward_cuda}
+_BACKWARD_BY_ROUTE = {"hopper": flash_backward_cuda, "hopper_wide": flash_backward_wide_cuda,
+                      "general": flash_general_backward_cuda}
+
+
 def _flash_fwd_cuda(q, k, v, causal, scale):
-    if _kernel_route(q, k, scale) == "hopper":
-        return flash_forward_cuda(q, k, v, causal, scale)
-    return flash_general_forward_cuda(q, k, v, causal, scale)
+    return _FORWARD_BY_ROUTE[_kernel_route(q, k, scale)](q, k, v, causal, scale)
 
 
 def _flash_fwd_fake(q, k, v, causal, scale):
@@ -397,9 +459,7 @@ def _flash_bwd_cpu(q, k, v, o, lse, do, causal, scale):
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale):
-    if _kernel_route(q, k, scale) == "hopper":
-        return flash_backward_cuda(q, k, v, o, lse, do, causal, scale)
-    return flash_general_backward_cuda(q, k, v, o, lse, do, causal, scale)
+    return _BACKWARD_BY_ROUTE[_kernel_route(q, k, scale)](q, k, v, o, lse, do, causal, scale)
 
 
 def _flash_bwd_fake(q, k, v, o, lse, do, causal, scale):
@@ -441,6 +501,8 @@ def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None)
     CUDA tensors run the kernels of ``_kernel_route``: Hopper launches are
     counted in ``flash_attention.launches`` (forward),
     ``flash_bwd_dq_cuda.launches`` and ``flash_bwd_dkv_cuda.launches``,
+    wide ones in ``flash_forward_wide_cuda.launches`` and
+    ``flash_bwd_dkv_wide_cuda.launches`` (their dQ is the general one's),
     general ones in ``flash_general_{forward,dq,dkv}_cuda.launches``. CPU
     tensors run the plain versions."""
     s = scale if scale is not None else q.shape[-1] ** -0.5

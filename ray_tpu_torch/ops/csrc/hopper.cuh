@@ -6,7 +6,7 @@
 // Shared-memory tiles. Every operand tile is loaded by TMA as boxes of
 // kSwizzle-byte rows (128 bytes = 64 16-bit columns, or 64 bytes = 32
 // columns) with the matching TMA swizzle; a head_dim of 128 is two boxes
-// side by side, each box [rows][64]. Each box starts on a 1024-byte
+// side by side, each box [rows][64] (192 three, 256 four). Each box starts on a 1024-byte
 // boundary, so a descriptor's base offset is always 0.
 //   K-major operand (the reduction dim runs along the row): SBO = 8 rows
 //     x kSwizzle bytes; the k-th 16-column step adds 32 bytes inside the
@@ -279,6 +279,22 @@ __device__ __forceinline__ uint64_t desc_at(Desc d, uint32_t offset_bytes) {
   "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "  \
   "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "  \
   "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define HOPPER_REGS96                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "  \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "  \
+  "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "  \
+  "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "  \
+  "%92, %93, %94, %95}"
+#define HOPPER_REGS128                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "  \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "  \
+  "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "  \
+  "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "  \
+  "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "   \
+  "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "  \
+  "%123, %124, %125, %126, %127}"
 #define HOPPER_ACC8(d, i)                                                                  \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -286,6 +302,10 @@ __device__ __forceinline__ uint64_t desc_at(Desc d, uint32_t offset_bytes) {
 #define HOPPER_ACC32(d) HOPPER_ACC16(d), HOPPER_ACC8(d, 16), HOPPER_ACC8(d, 24)
 #define HOPPER_ACC64(d) \
   HOPPER_ACC32(d), HOPPER_ACC8(d, 32), HOPPER_ACC8(d, 40), HOPPER_ACC8(d, 48), HOPPER_ACC8(d, 56)
+#define HOPPER_ACC96(d) \
+  HOPPER_ACC64(d), HOPPER_ACC8(d, 64), HOPPER_ACC8(d, 72), HOPPER_ACC8(d, 80), HOPPER_ACC8(d, 88)
+#define HOPPER_ACC128(d) \
+  HOPPER_ACC96(d), HOPPER_ACC8(d, 96), HOPPER_ACC8(d, 104), HOPPER_ACC8(d, 112), HOPPER_ACC8(d, 120)
 
 // d (+)= A B, A and B from shared memory (descriptors); A K-major.
 #define HOPPER_WGMMA_SS(N, TY, REGS, ACC, IA, IB, IS, IT)                                     \
@@ -322,8 +342,23 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uin
 template <int N, bool kBf16, int kTransB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
-  static_assert(N == 32 || N == 64 || N == 128, "wgmma_rs: N is 32, 64 or 128");
-  if constexpr (N == 128) {
+  static_assert(N == 32 || N == 64 || N == 128 || N == 192 || N == 256,
+                "wgmma_rs: N is 32, 64, 128, 192 or 256");
+  if constexpr (N == 256) {
+    if constexpr (kBf16)
+      HOPPER_WGMMA_RS(256, "bf16", HOPPER_REGS128, HOPPER_ACC128(d), "{%128, %129, %130, %131}", 132,
+                      133, 134);
+    else
+      HOPPER_WGMMA_RS(256, "f16", HOPPER_REGS128, HOPPER_ACC128(d), "{%128, %129, %130, %131}", 132,
+                      133, 134);
+  } else if constexpr (N == 192) {
+    if constexpr (kBf16)
+      HOPPER_WGMMA_RS(192, "bf16", HOPPER_REGS96, HOPPER_ACC96(d), "{%96, %97, %98, %99}", 100, 101,
+                      102);
+    else
+      HOPPER_WGMMA_RS(192, "f16", HOPPER_REGS96, HOPPER_ACC96(d), "{%96, %97, %98, %99}", 100, 101,
+                      102);
+  } else if constexpr (N == 128) {
     if constexpr (kBf16)
       HOPPER_WGMMA_RS(128, "bf16", HOPPER_REGS64, HOPPER_ACC64(d), "{%64, %65, %66, %67}", 68, 69, 70);
     else
@@ -355,7 +390,8 @@ struct Tile {
   static constexpr int kBoxes = D / kCols;
   static constexpr int kBoxBytes = kRows * kSwizzle;
   static constexpr int kBytes = kBoxes * kBoxBytes;
-  static_assert(D % kCols == 0, "D is 32, 64 or 128");
+  static_assert(D == 32 || D == 64 || D == 128 || D == 192 || D == 256,
+                "D is 32, 64, 128, 192 or 256");
   static constexpr uint32_t kSbo = 8 * kSwizzle;
 
   // K-major use (the reduction runs along the row), from row r0 of the

@@ -67,6 +67,11 @@ SHAPES = [
     # 64-key tiles (one key past a tile).
     ("causal_257_hd128", (1, 2, 257, 128), (1, 2, 257, 128), True, 64, 64),
     ("noncausal_65x65_hd128", (1, 2, 65, 128), (1, 2, 65, 128), False, 64, 64),
+    # The wide kernels (head dims 144-256): one row past their 128-row q
+    # tiles and two 64-key tiles; a ragged GQA pair of lengths at the
+    # narrowest wide head dim.
+    ("causal_130_hd256", (1, 2, 130, 256), (1, 2, 130, 256), True, 64, 64),
+    ("gqa_noncausal_ragged_72x136_hd144", (1, 4, 72, 144), (1, 2, 136, 144), False, 64, 64),
 ]
 
 
@@ -244,10 +249,16 @@ ROUTES = [
     # b·H = 65,600: the Hopper kernels schedule on a one-dimensional grid.
     ("bf16_bh65600", torch.bfloat16, (4100, 16, 16, 64), (4100, 16, 16, 64), 0.125, "hopper"),
     ("fp32_hd64", torch.float32, (2, 8, 1024, 64), (2, 4, 1024, 64), 0.125, "general"),
-    ("bf16_hd256", torch.bfloat16, (1, 16, 2048, 256), (1, 16, 2048, 256), 0.0625, "general"),
+    ("bf16_hd256", torch.bfloat16, (1, 16, 2048, 256), (1, 16, 2048, 256), 0.0625,
+     "hopper_wide"),
+    ("bf16_hd256_gqa", torch.bfloat16, (2, 8, 1024, 256), (2, 2, 1024, 256), 0.0625,
+     "hopper_wide"),
+    ("fp16_hd192", torch.float16, (1, 4, 300, 192), (1, 2, 500, 192), 0.072, "hopper_wide"),
+    # Off the 16 grid: the general kernels.
+    ("bf16_hd200", torch.bfloat16, (1, 2, 8, 200), (1, 2, 8, 200), 0.07, "general"),
     ("fp16_hd72", torch.float16, (1, 4, 300, 72), (1, 2, 500, 72), 0.118, "general"),
     ("bf16_hd24", torch.bfloat16, (1, 2, 8, 24), (1, 2, 8, 24), 0.2, "general"),
-    ("bf16_hd144", torch.bfloat16, (1, 2, 8, 144), (1, 2, 8, 144), 0.08, "general"),
+    ("bf16_hd144", torch.bfloat16, (1, 2, 8, 144), (1, 2, 8, 144), 0.08, "hopper_wide"),
     ("bf16_negative_scale", torch.bfloat16, (1, 2, 8, 64), (1, 2, 8, 64), -0.125, "general"),
     ("fp32_hd1", torch.float32, (1, 2, 8, 1), (1, 2, 8, 1), 1.0, "general"),
 ]
@@ -262,13 +273,14 @@ def test_kernel_route(name, dtype, qs, ks, scale, route):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernel_route_raises_above_head_dim_256(dtype):
-    """Neither route takes a head dim above 256 (a settled difference: the
-    reference's Pallas kernels take any head dim)."""
+    """No route takes a head dim above 256 (a settled difference: the
+    reference's Pallas kernels take any head dim); 256 itself is the wide
+    route's in bf16 and the general route's in fp32."""
     q = _empty((1, 2, 8, 264), dtype)
     with pytest.raises(ValueError, match="head_dim 264"):
         tatt._kernel_route(q, q, 0.0625)
     assert tatt._kernel_route(_empty((1, 2, 8, 256), dtype), _empty((1, 2, 8, 256), dtype),
-                              0.0625) == "general"
+                              0.0625) == ("hopper_wide" if dtype == torch.bfloat16 else "general")
 
 
 @pytest.fixture
@@ -285,7 +297,7 @@ def test_kernel_matches_plain_on_card(cuda_device, name, qs, ks, causal, bq, bk)
     one bf16 rounding of o plus P rounded to bf16 for P V (2e-2 on o)."""
     q, k, v = (torch.tensor(a, device=cuda_device).bfloat16() for a in _inputs(qs, ks))
     scale = qs[-1] ** -0.5
-    o, lse = tatt.flash_forward_cuda(q, k, v, causal, scale)
+    o, lse = tatt._flash_fwd_cuda(q, k, v, causal, scale)  # the Hopper or the wide route
     o_ref, lse_ref = tatt.flash_attention_plain(q.float(), k.float(), v.float(), causal, scale)
     torch.testing.assert_close(o.float(), o_ref, rtol=0, atol=2e-2)
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=2e-3)
@@ -327,8 +339,8 @@ def test_bwd_kernels_match_plain_on_card(cuda_device, name, qs, ks, causal, bq, 
     do = torch.tensor(np.random.default_rng(11).standard_normal(qs).astype(np.float32),
                       device=cuda_device).bfloat16()
     scale = qs[-1] ** -0.5
-    o, lse = tatt.flash_forward_cuda(q, k, v, causal, scale)
-    got = tatt.flash_backward_cuda(q, k, v, o, lse, do, causal, scale)
+    o, lse = tatt._flash_fwd_cuda(q, k, v, causal, scale)  # the Hopper or the wide route
+    got = tatt._flash_bwd_cuda(q, k, v, o, lse, do, causal, scale)
     ref = tatt.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
                                          do.float(), causal, scale)
     for g, r in zip(got, ref):

@@ -197,17 +197,21 @@ def _flat(tree, prefix=""):
 @pytest.mark.parametrize(
     "case",
     ["plain", "remat", "chunked", "remat_chunked_masked", "masked", "moe", "moe_remat_chunked",
-     "dots", "attn", "moe_dots", "moe_attn_chunked"],
+     "dots", "attn", "moe_dots", "moe_attn_chunked", "wide_head"],
 )
 def test_loss_and_grads_match_jax(case):
     """``loss_fn`` and every parameter's gradient against
     ``jax.value_and_grad(ray_tpu.models.transformer.loss_fn)`` on the same
     converted weights, at the tiny config (GQA 4 q / 2 kv heads); the
-    "dots" and "attn" cases run both sides under that remat policy."""
+    "dots" and "attn" cases run both sides under that remat policy;
+    "wide_head" at d_model 512 with 2 q heads and 1 kv head of 256 (the head
+    dims the wide kernels take on the card)."""
     policy = next((p for p in ("dots", "attn") if p in case), "full")
     kw = dict(remat="remat" in case or policy != "full", remat_policy=policy,
               logits_chunk=16 if "chunked" in case else 0,
               num_experts=4 if "moe" in case else 0)
+    if case == "wide_head":
+        kw.update(d_model=512, n_heads=2, n_kv_heads=1)
     jcfg = jtf.TransformerConfig.tiny(dtype=jnp.float32, **kw)
     tcfg = ttf.TransformerConfig.tiny(dtype=torch.float32, **kw)
     jp = jtf.init_params(jax.random.PRNGKey(3), jcfg)
