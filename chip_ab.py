@@ -8,7 +8,7 @@ one, alternated (base, change, change, base), so both sides share the card,
 its power limit and its neighbours. Reads every timed ``[kernel]`` row
 (forward ``ms``; backward ``dq_ms``, ``dkv_ms``; the general kernels'
 ``fwd_ms``, ``dq_ms``, ``dkv_ms``; the wide kernels' ``fwd_ms``,
-``dkv_ms``) and prints, per kernel and
+``dq_ms``, ``dkv_ms``) and prints, per kernel and
 shape, both runs of each side and the change's mean over the base's, and
 the whole table as one JSON object on the last line. Exits non-zero if any
 run fails.
@@ -44,6 +44,7 @@ def parse(lines) -> dict:
                                                           "dq_ms": "general_dq",
                                                           "dkv_ms": "general_dkv"}),
                              ("[kernel] flash_wide ", {"fwd_ms": "wide_fwd",
+                                                       "dq_ms": "wide_dq",
                                                        "dkv_ms": "wide_dkv"})):
             if line.startswith(prefix) and ": {" in line:
                 shape, row = line[len(prefix):].split(": ", 1)

@@ -36,10 +36,12 @@ Phases, in order; any failure raises and the process exits non-zero:
      causal, fp16 head dim 72 cross-length and b*H = 65,600, where the
      Hopper kernels run too), with times, bounds, plain and SDPA times;
      where the route is "hopper_wide", the wide forward
-     (``csrc/flash_fwd_wide.cu``) and the wide backward (the general dQ,
-     then ``csrc/flash_bwd_dkv_wide.cu``) against the plain versions too
-     (``O_TOL``, ``LSE_TOL``, ``GRAD_REL_TOL``), timed beside the general
-     kernels, dK/dV run twice bitwise equal; then the wide kernels at
+     (``csrc/flash_fwd_wide.cu``) and the wide backward (the wide dQ,
+     ``csrc/flash_bwd_wide.cu``, then ``csrc/flash_bwd_dkv_wide.cu``)
+     against the plain versions too (``O_TOL``, ``LSE_TOL``,
+     ``GRAD_REL_TOL``; the wide dQ's delta against rowsum(dO * O) in torch
+     within ``DELTA_REL_TOL``), timed beside the general kernels, dQ and
+     dK/dV each run twice bitwise equal; then the wide kernels at
      ``WIDE_EDGE_SHAPES`` (the edges of their tiles, head dims 144-256);
   5. training phase: ``make_train_step`` on the 750M flagship config of
      ``bench.py`` (full width, full depth, remat, batch 12 x 2048, random
@@ -56,7 +58,7 @@ Phases, in order; any failure raises and the process exits non-zero:
      through the kernels against the same model through plain attention;
      then the wide-head flagship (``wide_training_phase``): the 750M
      config with 9 q and 9 kv heads of 256 ("full" remat, batch 12 x 2048)
-     trains 5 steps, each launching 20 wide forwards, 10 general dQ and
+     trains 5 steps, each launching 20 wide forwards, 10 wide dQ and
      10 wide dK/dV kernels and nothing else, the loss falling; and its
      loss and every gradient on one 1 x 2048 batch against plain
      attention, held to the same bounds;
@@ -331,8 +333,8 @@ EDGE_SHAPES = [
 # Every kernel is built around TMA and wgmma: its SASS must hold both, and
 # no mma.sync.
 HOPPER_KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_dkv", "flash_fwd_wide",
-                  "flash_bwd_dkv_wide")
-# The dQ kernel's delta against rowsum(dO * O) in torch: fp32 sums of hd
+                  "flash_bwd_wide", "flash_bwd_dkv_wide")
+# The dQ kernels' delta against rowsum(dO * O) in torch: fp32 sums of hd
 # products in another order, relative to the largest |delta|.
 DELTA_REL_TOL = 1e-4
 # The serving phase's prompt mix (prompt lengths; 32 new tokens each), and
@@ -708,9 +710,10 @@ GENERAL_SHAPES = [
      torch.bfloat16, "hopper"),
 ]
 # The edges of the wide kernels' tiles (the forward's 128-row q tiles of two
-# 64-row consumers and 64-key tiles, the dK/dV kernel's 64-key tiles and
-# 64-query steps) and of their two widths (D = 192 holds head dims 144-192,
-# D = 256 208-256): (label, b, H, KV, q_len, k_len, hd, causal, dtype).
+# 64-row consumers and 64-key tiles, the dQ kernel's pairs of 64-row q
+# tiles and 64-key tiles, the dK/dV kernel's 64-key tiles and 64-query
+# steps) and of their two widths (D = 192 holds head dims 144-192, D = 256
+# 208-256): (label, b, H, KV, q_len, k_len, hd, causal, dtype).
 WIDE_EDGE_SHAPES = [
     ("causal 130 hd256", 1, 2, 2, 130, 130, 256, True, torch.bfloat16),
     ("fp16 gqa 2:1 causal 257 hd192", 1, 2, 1, 257, 257, 192, True, torch.float16),
@@ -718,6 +721,13 @@ WIDE_EDGE_SHAPES = [
     # Keys past every query (causal, k_len > q_len) get exactly zero.
     ("cross-length causal 64x200 hd160", 1, 2, 2, 64, 200, 160, True, torch.bfloat16),
     ("noncausal 65x65 hd240", 1, 2, 2, 65, 65, 240, False, torch.bfloat16),
+    # One row past a 64-row q tile (65) or three (193): a pair of the dQ
+    # kernel's q tiles, with and without a single beside it; GQA, and
+    # ragged cross lengths, at both widths.
+    ("gqa 2:1 causal 65 hd256", 1, 4, 2, 65, 65, 256, True, torch.bfloat16),
+    ("gqa 2:1 causal 193 hd192", 1, 4, 2, 193, 193, 192, True, torch.bfloat16),
+    ("gqa 4:1 noncausal ragged 193x77 hd256", 1, 4, 1, 193, 77, 256, False, torch.bfloat16),
+    ("fp16 cross-length causal 65x190 hd176", 1, 2, 2, 65, 190, 176, True, torch.float16),
 ]
 
 
@@ -754,7 +764,8 @@ def general_kernel_phase(card: str) -> dict:
         return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
     rows = []
-    max_abs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "wide_fwd": 0.0, "wide_dkv": 0.0}
+    max_abs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "wide_fwd": 0.0, "wide_dq": 0.0,
+               "wide_dkv": 0.0, "wide_delta": 0.0}
     for label, b, H, KV, ql, kl, hd, causal, dtype, route in GENERAL_SHAPES:
         q, do = rand(b, H, ql, hd, dtype=dtype), rand(b, H, ql, hd, dtype=dtype)
         k, v = rand(b, KV, kl, hd, dtype=dtype), rand(b, KV, kl, hd, dtype=dtype)
@@ -801,11 +812,11 @@ def general_kernel_phase(card: str) -> dict:
                 b, H, KV, ql, kl, hd, causal, q.element_size(), card, kind)
         if route == "hopper_wide":
             row["wide"] = _wide_check(q, k, v, do, causal, scale, o_ref, lse_ref, timed=True)
-            row["wide"]["fwd_bound_ms"] = row["fwd_bound_ms"]
-            row["wide"]["dkv_bound_ms"] = row["dkv_bound_ms"]
+            for kind in ("fwd", "dq", "dkv"):
+                row["wide"][f"{kind}_bound_ms"] = row[f"{kind}_bound_ms"]
             log(f"[kernel] flash_wide {label}: " + json.dumps(row["wide"]))
             ok = ok and row["wide"]["ok"]
-            for key in ("fwd", "dkv"):
+            for key in ("fwd", "dq", "dkv", "delta"):
                 max_abs[f"wide_{key}"] = max(max_abs[f"wide_{key}"], row["wide"][f"{key}_abs_err"])
         if route == "hopper":
             o_h, lse_h = att.flash_forward_cuda(q, k, v, causal, scale)
@@ -839,7 +850,7 @@ def general_kernel_phase(card: str) -> dict:
         if not (row["ok"] and row["route"] == "hopper_wide"):
             raise AssertionError(f"wide kernels disagree with their plain versions at {label}: "
                                  f"{row}")
-        for key in ("fwd", "dkv"):
+        for key in ("fwd", "dq", "dkv", "delta"):
             max_abs[f"wide_{key}"] = max(max_abs[f"wide_{key}"], row[f"{key}_abs_err"])
     # Keys past every query get exactly zero; inputs the wide kernels do
     # not take raise.
@@ -865,26 +876,34 @@ def general_kernel_phase(card: str) -> dict:
 
 
 def _wide_check(q, k, v, do, causal, scale, o_ref, lse_ref, timed: bool) -> dict:
-    """The wide forward and the wide backward (the general dQ, then the
-    wide dK/dV) against the plain versions on the same inputs (``O_TOL``
+    """The wide forward and the wide backward (the wide dQ, then the wide
+    dK/dV) against the plain versions on the same inputs (``O_TOL``
     absolute, ``LSE_TOL``, dQ/dK/dV within ``GRAD_REL_TOL`` of the largest
-    value); dK/dV run twice must agree bitwise (no atomics). ``timed``
-    adds the wide forward's and dK/dV's times."""
+    value, the dQ kernel's delta within ``DELTA_REL_TOL`` of rowsum(dO * O)
+    in torch); dQ and dK/dV each run twice must agree bitwise (no atomics).
+    ``timed`` adds the wide kernels' times."""
     from ray_tpu_torch.ops import attention as att
 
     o, lse = att.flash_forward_wide_cuda(q, k, v, causal, scale)
-    dq, delta = att.flash_general_dq_cuda(q, k, v, o, lse, do, causal, scale)
+    dq_runs = [att.flash_bwd_dq_wide_cuda(q, k, v, o, lse, do, causal, scale) for _ in range(2)]
+    dq, delta = dq_runs[0]
     runs = [att.flash_bwd_dkv_wide_cuda(q, k, v, do, lse, delta, causal, scale)
             for _ in range(2)]
     torch.cuda.synchronize()
     ref = att.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
                                         do.float(), causal, scale)
+    delta_ref = (do.float() * o.float()).sum(-1)
     _, o_abs, lse_err = _fwd_errors(o, lse, o_ref, lse_ref)
     row = {"fwd_abs_err": o_abs, "o_tol": O_TOL, "lse_err": lse_err, "lse_tol": LSE_TOL,
            "grad_rel_tol": GRAD_REL_TOL,
+           "delta_abs_err": (delta - delta_ref).abs().max().item(),
+           "delta_rel_tol": DELTA_REL_TOL,
+           "dq_bitwise_repeatable": all(torch.equal(a, b) for a, b in zip(*dq_runs)),
            "dkv_bitwise_repeatable": all(torch.equal(a, b) for a, b in zip(*runs))}
+    row["delta_rel_err"] = row["delta_abs_err"] / max(delta_ref.abs().max().item(), 1e-30)
     ok = (bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all()) and o_abs <= O_TOL
-          and lse_err <= LSE_TOL and row["dkv_bitwise_repeatable"])
+          and lse_err <= LSE_TOL and row["dq_bitwise_repeatable"]
+          and row["dkv_bitwise_repeatable"] and row["delta_rel_err"] <= DELTA_REL_TOL)
     dkv_abs = 0.0
     for name, got, want in zip(("dq", "dk", "dv"), (dq, *runs[0]), ref):
         err = (got.float() - want).abs().max().item()
@@ -897,6 +916,8 @@ def _wide_check(q, k, v, do, causal, scale, o_ref, lse_ref, timed: bool) -> dict
     row["dkv_abs_err"] = dkv_abs
     if timed:
         row["fwd_ms"] = time_ms(lambda: att.flash_forward_wide_cuda(q, k, v, causal, scale))
+        row["dq_ms"] = time_ms(lambda: att.flash_bwd_dq_wide_cuda(q, k, v, o, lse, do, causal,
+                                                                  scale))
         row["dkv_ms"] = time_ms(lambda: att.flash_bwd_dkv_wide_cuda(q, k, v, do, lse, delta,
                                                                      causal, scale))
     row["ok"] = ok
@@ -926,7 +947,8 @@ def _counted():
     return {"fwd": att.flash_attention, "dq": att.flash_bwd_dq_cuda,
             "dkv": att.flash_bwd_dkv_cuda, "general_fwd": att.flash_general_forward_cuda,
             "general_dq": att.flash_general_dq_cuda, "general_dkv": att.flash_general_dkv_cuda,
-            "wide_fwd": att.flash_forward_wide_cuda, "wide_dkv": att.flash_bwd_dkv_wide_cuda}
+            "wide_fwd": att.flash_forward_wide_cuda, "wide_dq": att.flash_bwd_dq_wide_cuda,
+            "wide_dkv": att.flash_bwd_dkv_wide_cuda}
 
 
 def launch_counts():
@@ -941,19 +963,19 @@ def reset_launch_counts():
 def no_general(per_step: dict) -> dict:
     """``per_step`` Hopper launches and no general or wide ones."""
     return {**per_step, "general_fwd": 0, "general_dq": 0, "general_dkv": 0, "wide_fwd": 0,
-            "wide_dkv": 0}
+            "wide_dq": 0, "wide_dkv": 0}
 
 
 def train_launches_per_step(cfg, policy: str) -> dict:
     """The kernels one train step launches: each layer's forward twice
     under "full" and "dots" (forward and recompute), once under "attn",
     one dQ and one dK/dV; on the Hopper route up to head dim 128, else on
-    the wide route (its dQ is the general kernel)."""
+    the wide route."""
     L = cfg.n_layers
     fwd = (1 if policy == "attn" else 2) * L
     if cfg.head_dim <= 128:
         return no_general({"fwd": fwd, "dq": L, "dkv": L})
-    return {**no_general({"fwd": 0, "dq": 0, "dkv": 0}), "wide_fwd": fwd, "general_dq": L,
+    return {**no_general({"fwd": 0, "dq": 0, "dkv": 0}), "wide_fwd": fwd, "wide_dq": L,
             "wide_dkv": L}
 
 
@@ -1111,7 +1133,7 @@ def grad_check_phase(card: str, n_heads: int = 18) -> dict:
     counts = launch_counts()
     lp, gp = loss_and_grads(plain_attn)
     route = train_launches_per_step(cfg, "full")
-    dq_key = "dq" if route["dq"] else "general_dq"
+    dq_key = "dq" if route["dq"] else "wide_dq"
     if launch_counts() != counts or counts[dq_key] != cfg.n_layers or any(
             counts[key] for key, n in route.items() if n == 0):
         raise AssertionError(f"kernel launches {counts}, then {launch_counts()} under plain")
@@ -1143,7 +1165,7 @@ WIDE_HEADS = 9
 
 def wide_training_phase(card: str, smi: str, profile: bool = False) -> dict:
     """The wide-head flagship trains through the wide route: 5 steps of
-    ``training_phase`` (the loss falls; 20 wide forwards, 10 general dQ and
+    ``training_phase`` (the loss falls; 20 wide forwards, 10 wide dQ and
     10 wide dK/dV launches a step and nothing else; ``profile`` adds a
     profiled step), then its gradient check against plain attention."""
     run = training_phase(card, smi, "full", profile=profile, n_heads=WIDE_HEADS, warmup=1,
@@ -1191,7 +1213,7 @@ def fp32_training_phase(card: str) -> dict:
         losses.append(float(m["loss"]))
     launches = launch_counts()
     want = {"fwd": 0, "dq": 0, "dkv": 0, "general_fwd": 2 * L * steps, "general_dq": L * steps,
-            "general_dkv": L * steps, "wide_fwd": 0, "wide_dkv": 0}
+            "general_dkv": L * steps, "wide_fwd": 0, "wide_dq": 0, "wide_dkv": 0}
     if launches != want:
         raise AssertionError(f"fp32 training launches {launches} != {want}")
 
@@ -4450,6 +4472,9 @@ def main() -> int:
                             "library_ms": r["library_fwd_ms" if kind == "fwd"
                                             else "library_bwd_ms"]} for r in gen["rows"]])
         for kind, line in (("fwd", 56), ("dq", 201), ("dkv", 262))]
+    wide_dq_checks = {"bitwise_repeatable": all(r["wide"]["dq_bitwise_repeatable"]
+                                                for r in gen["rows"] if "wide" in r),
+                      "delta_max_abs_err": gen["max_abs"]["wide_delta"]}
     wide_rows = [
         kernel_row(f"flash_{name}", f"ray_tpu_torch/ops/csrc/flash_{name}.cu",
                    f"ray_tpu/ops/attention.py:{line}", wide_launches[f"wide_{kind}"],
@@ -4462,7 +4487,9 @@ def main() -> int:
                    note="launches: the wide-head flagship's 5 training steps; earlier_ms: the "
                         "general kernel at the same shape"
                         + ("" if kind == "fwd" else "; plain_ms and library_ms cover the whole "
-                                                    "backward"),
+                                                    "backward")
+                        + ("; the kernel also computes delta" if kind == "dq" else ""),
+                   **(wide_dq_checks if kind == "dq" else {}),
                    parallel_launches=parallel_launches[f"wide_{kind}"],
                    mpmd_launches=mpmd_launches[f"wide_{kind}"],
                    shapes=[{"shape": r["shape"], "ms": r["wide"][f"{kind}_ms"],
@@ -4471,7 +4498,8 @@ def main() -> int:
                             "library_ms": r["library_fwd_ms" if kind == "fwd"
                                             else "library_bwd_ms"]}
                            for r in gen["rows"] if "wide" in r])
-        for name, kind, line in (("fwd_wide", "fwd", 56), ("bwd_dkv_wide", "dkv", 262))]
+        for name, kind, line in (("fwd_wide", "fwd", 56), ("bwd_wide", "dq", 201),
+                                 ("bwd_dkv_wide", "dkv", 262))]
     by_policy_launches = {policy: row["launches_per_step"] for policy, row in by_policy.items()}
     kernels = [
         kernel_row("flash_fwd", "ray_tpu_torch/ops/csrc/flash_fwd.cu",

@@ -77,24 +77,26 @@ VARIANTS = {
 TIMED_ONLY = {"no_delta"}
 
 
-def build(name: str, subs: list, root: str):
+def build(name: str, subs, root: str, source: str = "flash_bwd.cu"):
     """→ (name, library path or None, ptxas lines and SASS counts, or the
-    compiler's output)."""
+    compiler's output). ``subs``: (old, new) substitutions of the committed
+    ``csrc/<source>``, each matching once, or the path of another source
+    of the same entry points."""
     d = os.path.join(root, name)
     os.makedirs(d)
-    with open(os.path.join(CSRC, "flash_bwd.cu")) as f:
+    with open(subs if isinstance(subs, str) else os.path.join(CSRC, source)) as f:
         src = f.read()
-    for old, new in subs:
+    for old, new in [] if isinstance(subs, str) else subs:
         if src.count(old) != 1:
             return name, None, f"substitution does not match once: {old!r}"
         src = src.replace(old, new)
     for header in ("hopper.cuh", "flash_common.cuh"):
         shutil.copy(os.path.join(CSRC, header), d)
-    with open(os.path.join(d, "flash_bwd.cu"), "w") as f:
+    with open(os.path.join(d, source), "w") as f:
         f.write(src)
-    out = os.path.join(d, "libflash_bwd.so")
+    out = os.path.join(d, "libkernel.so")
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out,
-                           os.path.join(d, "flash_bwd.cu")], capture_output=True, text=True)
+                           os.path.join(d, source)], capture_output=True, text=True)
     if proc.returncode:
         return name, None, proc.stdout + proc.stderr
     info = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
@@ -103,8 +105,10 @@ def build(name: str, subs: list, root: str):
     return name, out, "\n".join(info)
 
 
-def entry(path: str):
-    fn = ctypes.CDLL(path).flash_bwd_dq
+def entry(path: str, fn_name: str = "flash_bwd_dq"):
+    """The dQ entry point ``fn_name`` of a built variant (the signature of
+    ``flash_bwd_dq`` and ``flash_bwd_dq_wide``)."""
+    fn = getattr(ctypes.CDLL(path), fn_name)
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int

@@ -16,9 +16,9 @@ and never materialise repeated K/V.
   - "hopper" (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` for dQ,
     ``csrc/flash_bwd_dkv.cu`` for dK/dV): bf16/fp16, head dim a multiple
     of 16 up to 128, scale > 0;
-  - "hopper_wide" (``csrc/flash_fwd_wide.cu``, the general dQ kernel,
-    ``csrc/flash_bwd_dkv_wide.cu``): bf16/fp16, head dim a multiple of 16
-    in 144-256, scale > 0;
+  - "hopper_wide" (``csrc/flash_fwd_wide.cu``, ``csrc/flash_bwd_wide.cu``
+    for dQ, ``csrc/flash_bwd_dkv_wide.cu`` for dK/dV): bf16/fp16, head dim
+    a multiple of 16 in 144-256, scale > 0;
   - "general" (``csrc/flash_general.cu``, SIMT): everything else up to
     head dim 256 (fp32, head dims off the 16 grid, scale <= 0).
   On CPU tensors the ops run the plain versions. A CUDA input no route
@@ -142,8 +142,8 @@ def _kernel_route(q, k, scale: float) -> str:
     of one dtype, a head dim that is a multiple of 16 and ``scale > 0``:
     ``"hopper"`` up to head dim 128 (the TMA/``wgmma`` kernels of
     ``csrc/flash_fwd.cu``, ``flash_bwd.cu`` and ``flash_bwd_dkv.cu``) and
-    ``"hopper_wide"`` in 144-256 (``csrc/flash_fwd_wide.cu`` and
-    ``flash_bwd_dkv_wide.cu``, with the general dQ kernel); ``"general"``
+    ``"hopper_wide"`` in 144-256 (``csrc/flash_fwd_wide.cu``,
+    ``flash_bwd_wide.cu`` and ``flash_bwd_dkv_wide.cu``); ``"general"``
     (``csrc/flash_general.cu``) for every other input. A pure function of
     shape, dtype and scale: it is not a fallback, and every route raises
     on a failed build or launch. Raises above head dim 256, which no route
@@ -385,11 +385,24 @@ def flash_forward_wide_cuda(q, k, v, causal: bool, scale: float):
     return o, lse
 
 
+def flash_bwd_dq_wide_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
+    """Launch the wide dQ kernel (``csrc/flash_bwd_wide.cu``) → (dq, delta),
+    as ``flash_bwd_dq_cuda``: bf16/fp16, head dim a multiple of 16 in
+    144-256; counts its launches in ``flash_bwd_dq_wide_cuda.launches``."""
+    _check_bwd_inputs(q, k, v, {"o": o, "do": do}, {"lse": lse}, "hopper_wide")
+    dq = torch.empty_like(q)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _launch("flash_bwd_wide", "flash_bwd_dq_wide", (q, k, v, o, do, lse, dq, delta),
+            _shape_args(q, k, causal, scale, int(q.dtype == torch.bfloat16)))
+    flash_bwd_dq_wide_cuda.launches += 1
+    return dq, delta
+
+
 def flash_bwd_dkv_wide_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
     """Launch the wide dK/dV kernel (``csrc/flash_bwd_dkv_wide.cu``) → (dk,
     dv), kv-head shaped, as ``flash_bwd_dkv_cuda``; counts its launches in
     ``flash_bwd_dkv_wide_cuda.launches``. ``delta`` is the one
-    ``flash_general_dq_cuda`` returns."""
+    ``flash_bwd_dq_wide_cuda`` returns."""
     _check_bwd_inputs(q, k, v, {"do": do}, {"lse": lse, "delta": delta}, "hopper_wide")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_bwd_dkv_wide", "flash_bwd_dkv_wide", (q, k, v, do, lse, delta, dk, dv),
@@ -400,19 +413,19 @@ def flash_bwd_dkv_wide_cuda(q, k, v, do, lse, delta, causal: bool, scale: float)
 
 def flash_backward_wide_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
     """The backward on the card at wide heads → (dq, dk, dv), as
-    ``flash_backward_cuda``: the general dQ kernel (dQ and Δ), then the
-    wide dK/dV kernel."""
+    ``flash_backward_cuda``: the wide dQ kernel (dQ and Δ), then the wide
+    dK/dV kernel."""
     _check_kernel_inputs(q, k, v, "hopper_wide")
     if q.shape[2] == 0:
         return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    dq, delta = flash_general_dq_cuda(q, k, v, o, lse, do, causal, scale)
+    dq, delta = flash_bwd_dq_wide_cuda(q, k, v, o, lse, do, causal, scale)
     dk, dv = flash_bwd_dkv_wide_cuda(q, k, v, do, lse, delta, causal, scale)
     return dq, dk, dv
 
 
 for _wrapper in (flash_bwd_dq_cuda, flash_bwd_dkv_cuda, flash_general_forward_cuda,
                  flash_general_dq_cuda, flash_general_dkv_cuda, flash_forward_wide_cuda,
-                 flash_bwd_dkv_wide_cuda):
+                 flash_bwd_dq_wide_cuda, flash_bwd_dkv_wide_cuda):
     _wrapper.launches = 0
 
 
@@ -501,9 +514,9 @@ def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None)
     CUDA tensors run the kernels of ``_kernel_route``: Hopper launches are
     counted in ``flash_attention.launches`` (forward),
     ``flash_bwd_dq_cuda.launches`` and ``flash_bwd_dkv_cuda.launches``,
-    wide ones in ``flash_forward_wide_cuda.launches`` and
-    ``flash_bwd_dkv_wide_cuda.launches`` (their dQ is the general one's),
-    general ones in ``flash_general_{forward,dq,dkv}_cuda.launches``. CPU
+    wide ones in ``flash_forward_wide_cuda.launches``,
+    ``flash_bwd_dq_wide_cuda.launches`` and
+    ``flash_bwd_dkv_wide_cuda.launches``, general ones in ``flash_general_{forward,dq,dkv}_cuda.launches``. CPU
     tensors run the plain versions."""
     s = scale if scale is not None else q.shape[-1] ** -0.5
     return flash_fwd(q, k, v, bool(causal), float(s))[0]

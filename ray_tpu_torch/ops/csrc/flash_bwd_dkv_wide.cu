@@ -8,7 +8,7 @@
 // tiles. It computes the same function as flash_bwd_dkv.cu:
 //   P  = exp(scale * Q K^T + mask - lse)       (masked entries underflow to 0)
 //   dP = dO V^T,  dS = P * (dP - delta),  delta = rowsum(dO * O) (fp32,
-//        written by the general dQ kernel, flash_general.cu, which runs first)
+//        written by the wide dQ kernel, flash_bwd_wide.cu, which runs first)
 //   dV = P^T dO,  dK = scale * dS^T Q
 // with native GQA by index (dK and dV summed over each kv head's group of q
 // heads), top-left causal masking (q_id >= k_id), ragged q_len/k_len masked

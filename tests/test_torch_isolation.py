@@ -1,10 +1,11 @@
 """The port stands alone: no module of ray_tpu_torch, and none of
-chip_smoke.py, chip_ab.py and chip_tune_dq.py, imports JAX or anything of
-ray_tpu (the machine with the card has no JAX), and importing the package
-loads neither. Nor does any of them name a ray_tpu module or a RAY_TPU_*
-environment variable in a string: the runtime starts its processes by
-module name (``python -m ...``) and configures them through the
-environment, which an import walk cannot see."""
+chip_smoke.py, chip_ab.py, chip_tune_dq.py and chip_tune_dq_wide.py,
+imports JAX or anything of ray_tpu (the machine with the card has no JAX),
+and importing the package loads neither. Nor does any of them name a
+ray_tpu module or a RAY_TPU_* environment variable in a string: the
+runtime starts its processes by module name (``python -m ...``) and
+configures them through the environment, which an import walk cannot
+see."""
 import ast
 import os
 import re
@@ -19,7 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
 
 def _port_files():
     files = [os.path.join(REPO_ROOT, name)
-             for name in ("chip_smoke.py", "chip_ab.py", "chip_tune_dq.py")]
+             for name in ("chip_smoke.py", "chip_ab.py", "chip_tune_dq.py",
+                          "chip_tune_dq_wide.py")]
     for dirpath, _dirnames, filenames in os.walk(os.path.join(REPO_ROOT, "ray_tpu_torch")):
         files += [os.path.join(dirpath, f) for f in filenames if f.endswith(".py")]
     return sorted(files)
@@ -84,7 +86,7 @@ def _forbidden(name):
 
 def test_port_files_are_found():
     files = [os.path.relpath(p, REPO_ROOT) for p in _port_files()]
-    for expected in ("chip_smoke.py", "chip_ab.py", "chip_tune_dq.py",
+    for expected in ("chip_smoke.py", "chip_ab.py", "chip_tune_dq.py", "chip_tune_dq_wide.py",
                      "ray_tpu_torch/ops/attention.py",
                      "ray_tpu_torch/serve/llm_engine.py", "ray_tpu_torch/parallel/train_step.py",
                      "ray_tpu_torch/parallel/hop_bridge.py", "ray_tpu_torch/parallel/mpmd.py",
