@@ -7,8 +7,8 @@ Runs ``chip_smoke.py --kernels-only`` from the base checkout and from this
 one, alternated (base, change, change, base), so both sides share the card,
 its power limit and its neighbours. Reads every timed ``[kernel]`` row
 (forward ``ms``; backward ``dq_ms``, ``dkv_ms``; the general kernels'
-``fwd_ms``, ``dq_ms``, ``dkv_ms``; the wide kernels' ``fwd_ms``,
-``dq_ms``, ``dkv_ms``) and prints, per kernel and
+``fwd_ms``, ``dq_ms``, ``dkv_ms``; the Hopper and wide kernels' ``fwd_ms``,
+``dq_ms``, ``dkv_ms`` at the general phase's shapes) and prints, per kernel and
 shape, both runs of each side and the change's mean over the base's, and
 the whole table as one JSON object on the last line. Exits non-zero if any
 run fails.
@@ -45,7 +45,9 @@ def parse(lines) -> dict:
                                                           "dkv_ms": "general_dkv"}),
                              ("[kernel] flash_wide ", {"fwd_ms": "wide_fwd",
                                                        "dq_ms": "wide_dq",
-                                                       "dkv_ms": "wide_dkv"})):
+                                                       "dkv_ms": "wide_dkv"}),
+                             ("[kernel] flash_hopper ", {"fwd_ms": "fwd", "dq_ms": "dq",
+                                                         "dkv_ms": "dkv"})):
             if line.startswith(prefix) and ": {" in line:
                 shape, row = line[len(prefix):].split(": ", 1)
                 row = json.loads(row)

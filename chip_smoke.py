@@ -10,7 +10,7 @@ their plain versions.
     python3 chip_smoke.py --cli-only      # the CLI and launcher phase (16)
     python3 chip_smoke.py --parallel-only # the mesh-parallel phase (17)
     python3 chip_smoke.py --mpmd-only     # the MPMD phase (18)
-    python3 chip_smoke.py --wide-only     # build, phase 4 and the wide-head flagship (7)
+    python3 chip_smoke.py --wide-only     # build, phase 4, the wide-head and hd-72 flagships (7)
 
 Phases, in order; any failure raises and the process exits non-zero:
   1. the card (the nvidia-smi name and power limit on a line of their
@@ -30,19 +30,26 @@ Phases, in order; any failure raises and the process exits non-zero:
      (no atomics); inputs no kernel takes (head dim 264, a non-contiguous
      dO, a bf16 lse) raise;
   4. general-kernel phase: the three kernels of ``csrc/flash_general.cu``
-     against their plain versions at ``GENERAL_SHAPES`` (fp32 GQA, bf16
-     head dim 256 causal, a bf16 GQA at head dim 256, bf16 head dim 144
-     ragged cross-length, the wide-head flagship's own [12, 9, 2048, 256]
-     causal, fp16 head dim 72 cross-length and b*H = 65,600, where the
-     Hopper kernels run too), with times, bounds, plain and SDPA times;
-     where the route is "hopper_wide", the wide forward
-     (``csrc/flash_fwd_wide.cu``) and the wide backward (the wide dQ,
-     ``csrc/flash_bwd_wide.cu``, then ``csrc/flash_bwd_dkv_wide.cu``)
-     against the plain versions too (``O_TOL``, ``LSE_TOL``,
-     ``GRAD_REL_TOL``; the wide dQ's delta against rowsum(dO * O) in torch
-     within ``DELTA_REL_TOL``), timed beside the general kernels, dQ and
-     dK/dV each run twice bitwise equal; then the wide kernels at
-     ``WIDE_EDGE_SHAPES`` (the edges of their tiles, head dims 144-256);
+     against their plain versions at ``GENERAL_SHAPES``, with times,
+     bounds, plain and SDPA times: the general route's own inputs (fp32
+     GQA, fp16 head dim 72 at scale < 0) and, as the "earlier" times of
+     the TMA kernels, the bf16/fp16 shapes the Hopper and wide routes take
+     (head dim 256 causal, a GQA at 256, 144 ragged cross-length, the
+     wide-head flagship's [12, 9, 2048, 256]; off the 16 grid: fp16 72
+     cross-length, SigLIP's [32, 16, 729, 72], DiT's [8, 16, 1024, 72]
+     beside 64 and 128, SD 1.5's [2, 8, 4096, 40], the hd-72 flagship's
+     [12, 32, 2048, 72], 136 causal and a GQA at 100, staged to 104; and
+     b*H = 65,600). At each shape of a TMA route its forward and backward
+     (dQ, then dK/dV: ``csrc/flash_fwd.cu``, ``flash_bwd.cu``,
+     ``flash_bwd_dkv.cu`` or the wide ``flash_fwd_wide.cu``,
+     ``flash_bwd_wide.cu``, ``flash_bwd_dkv_wide.cu``) against the plain
+     versions too (``O_TOL``, ``LSE_TOL``, ``GRAD_REL_TOL``; the dQ
+     kernel's delta against rowsum(dO * O) in torch within
+     ``DELTA_REL_TOL``), timed beside the general kernels, dQ and dK/dV
+     each run twice bitwise equal; a head dim off the 8 grid on zero-padded
+     copies, the ops' staged outputs bit-equal to them, each op counting one
+     ``stage_head_dim`` use; then the TMA kernels at ``WIDE_EDGE_SHAPES``
+     and ``OFF_GRID_EDGE_SHAPES`` (the edges of their tiles and widths);
   5. training phase: ``make_train_step`` on the 750M flagship config of
      ``bench.py`` (full width, full depth, remat, batch 12 x 2048, random
      weights and tokens from seeds) under each remat policy ("full",
@@ -61,7 +68,10 @@ Phases, in order; any failure raises and the process exits non-zero:
      trains 5 steps, each launching 20 wide forwards, 10 wide dQ and
      10 wide dK/dV kernels and nothing else, the loss falling; and its
      loss and every gradient on one 1 x 2048 batch against plain
-     attention, held to the same bounds;
+     attention, held to the same bounds; then the hd-72 flagship
+     (``off_grid_training_phase``): the same config with 32 q and 32 kv
+     heads of 72, 5 steps launching 20 Hopper forwards, 10 dQ and 10
+     dK/dV and nothing else (no staged copy), and its gradient check;
   8. serving phase: ``LLMEngine`` serving llama7b (bf16, full width, random
      weights from a seed) through the paged engine, then a shared-prefix
      pass and a chunked-prefill pass; the forward kernel's launch counter
@@ -354,6 +364,23 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def timed_phase(fn):
+    """``fn`` logging its seconds and the seconds since this module was
+    imported, so a run shows where its time limit goes."""
+    import functools
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            log(f"[time] {fn.__name__}: {time.perf_counter() - t0:.1f} s "
+                f"({time.time() - _IMPORT_BEGAN:.1f} s since the start)")
+
+    return run
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -431,6 +458,7 @@ def attention_bound_ms(b, H, KV, q_len, k_len, hd, causal, elem_bytes, card, kin
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+@timed_phase
 def thread_launch_check() -> dict:
     """flash_fwd at ``JOB_SHAPE`` launched from a fresh host thread (one
     that made no CUDA call) must give this thread's output bit for bit
@@ -463,6 +491,7 @@ def thread_launch_check() -> dict:
     return {"fresh_thread_bit_equal": True}
 
 
+@timed_phase
 def kernel_phase(card: str) -> dict:
     import torch.nn.functional as F
 
@@ -531,8 +560,9 @@ def kernel_phase(card: str) -> dict:
     if not torch.equal(o1[:, :, :100], o2[:, :, :100]):
         raise AssertionError("flash_fwd: future keys changed earlier rows")
     log("[kernel] flash_fwd causal no-leak check: exact")
-    # A CUDA input no kernel takes raises; it never falls back. (fp32, head
-    # dims off the Hopper grid and scale <= 0 take the general route.)
+    # A CUDA input no kernel takes raises; it never falls back. (fp32 and
+    # scale <= 0 take the general route; bf16/fp16 head dims off the 16 grid
+    # the Hopper and wide ones, those off the 8 grid through a staged copy.)
     for bad in (lambda: att.flash_attention(*(rand(1, 2, 8, 264) for _ in range(3))),
                 lambda: att.flash_forward_cuda(q, k, v, True, -0.125)):
         try:
@@ -559,6 +589,7 @@ def sdpa_backward_ms(q, k, v, do, causal, scale):
     return time_ms(lambda: torch.autograd.grad(o, (qr, kr, vr), do, retain_graph=True))
 
 
+@timed_phase
 def bwd_kernel_phase(card: str) -> dict:
     """dQ and dK/dV kernels against ``flash_attention_bwd_plain`` (fp32 on
     the same bf16 inputs, o and lse from the forward kernel)."""
@@ -687,17 +718,27 @@ def bwd_kernel_phase(card: str) -> dict:
 GENERAL_O_TOL_FP32 = 2e-4
 GENERAL_O_TOL_16 = 1e-2
 GENERAL_LSE_TOL = 2e-4
+GENERAL_FP32_LABEL = "fp32 gqa [2, 8/2, 1024, 64] causal"
 GENERAL_HEAD_LABEL = "bf16 [1, 16/16, 2048, 256] causal"
 WIDE_TRAIN_LABEL = "wide train [12, 9, 2048, 256] causal"
-# (label, b, H, KV, q_len, k_len, hd, causal, dtype, route): the head shape
-# of Gemma-7B's public config is the headline; the bf16 head dims 144-256
-# take the wide route (its kernels are checked and timed beside the
-# general ones there, also at the wide-head flagship's training shape, 864
-# forward blocks in several waves); at b*H = 65,600 the Hopper kernels run
-# too (their grid is one-dimensional).
+# (label, b, H, KV, q_len, k_len, hd, causal, dtype, route). The general
+# kernels run at every shape (the "earlier" times of the TMA kernels); each
+# shape's route runs there too and is checked and timed beside them. The
+# general route keeps fp32 and scale <= 0: its 16-bit rows run at -hd^-0.5,
+# every other row at hd^-0.5. The wide route's headline is the head shape of
+# Gemma-7B's public config; the wide-head flagship's training shape has 864
+# forward blocks in several waves. Head dims off the 16 grid (on the TMA
+# kernels since they take multiples of 8): SigLIP-so400m/14 at 384 px
+# (1152 / 16 = 72, 729 patches, 32 images), DiT-XL/2 at 512 px (1152 / 16,
+# 1024 tokens), Stable Diffusion 1.5's UNet level 1 at 512 px (320 / 8 = 40,
+# 4096 positions), the hd-72 flagship's own shape, 136 (the gap between the
+# routes, at D = 192) and 100 (staged to 104); the same DiT shape at head
+# dims 64 and 128 beside 72 gives the padding's cost. At b*H = 65,600 the
+# Hopper grid is one-dimensional.
 GENERAL_SHAPES = [
-    ("fp32 gqa [2, 8/2, 1024, 64] causal", 2, 8, 2, 1024, 1024, 64, True, torch.float32,
-     "general"),
+    (GENERAL_FP32_LABEL, 2, 8, 2, 1024, 1024, 64, True, torch.float32, "general"),
+    ("fp16 [1, 4/2, 300, 72] x k_len 500 noncausal scale < 0", 1, 4, 2, 300, 500, 72, False,
+     torch.float16, "general"),
     (GENERAL_HEAD_LABEL, 1, 16, 16, 2048, 2048, 256, True, torch.bfloat16, "hopper_wide"),
     ("bf16 gqa [2, 8/2, 1024, 256] causal", 2, 8, 2, 1024, 1024, 256, True, torch.bfloat16,
      "hopper_wide"),
@@ -705,15 +746,31 @@ GENERAL_SHAPES = [
      torch.bfloat16, "hopper_wide"),
     (WIDE_TRAIN_LABEL, 12, 9, 9, 2048, 2048, 256, True, torch.bfloat16, "hopper_wide"),
     ("fp16 [1, 4/2, 300, 72] x k_len 500 noncausal", 1, 4, 2, 300, 500, 72, False,
-     torch.float16, "general"),
+     torch.float16, "hopper"),
+    ("siglip bf16 [32, 16/16, 729, 72] noncausal", 32, 16, 16, 729, 729, 72, False,
+     torch.bfloat16, "hopper"),
+    ("dit bf16 [8, 16/16, 1024, 72] noncausal", 8, 16, 16, 1024, 1024, 72, False,
+     torch.bfloat16, "hopper"),
+    ("sd15 bf16 [2, 8/8, 4096, 40] noncausal", 2, 8, 8, 4096, 4096, 40, False, torch.bfloat16,
+     "hopper"),
+    ("hd72 train [12, 32, 2048, 72] causal", 12, 32, 32, 2048, 2048, 72, True, torch.bfloat16,
+     "hopper"),
+    ("gap bf16 [1, 16/16, 2048, 136] causal", 1, 16, 16, 2048, 2048, 136, True, torch.bfloat16,
+     "hopper_wide"),
+    ("staged bf16 gqa [2, 8/2, 1024, 100] causal", 2, 8, 2, 1024, 1024, 100, True,
+     torch.bfloat16, "hopper"),
+    ("dit bf16 [8, 16/16, 1024, 64] noncausal", 8, 16, 16, 1024, 1024, 64, False,
+     torch.bfloat16, "hopper"),
+    ("dit bf16 [8, 16/16, 1024, 128] noncausal", 8, 16, 16, 1024, 1024, 128, False,
+     torch.bfloat16, "hopper"),
     ("bf16 [4100, 16/16, 16, 64] causal (b*H 65600)", 4100, 16, 16, 16, 16, 64, True,
      torch.bfloat16, "hopper"),
 ]
 # The edges of the wide kernels' tiles (the forward's 128-row q tiles of two
 # 64-row consumers and 64-key tiles, the dQ kernel's pairs of 64-row q
 # tiles and 64-key tiles, the dK/dV kernel's 64-key tiles and 64-query
-# steps) and of their two widths (D = 192 holds head dims 144-192, D = 256
-# 208-256): (label, b, H, KV, q_len, k_len, hd, causal, dtype).
+# steps) and of their two widths (D = 192 holds head dims 136-192, D = 256
+# 200-256): (label, b, H, KV, q_len, k_len, hd, causal, dtype).
 WIDE_EDGE_SHAPES = [
     ("causal 130 hd256", 1, 2, 2, 130, 130, 256, True, torch.bfloat16),
     ("fp16 gqa 2:1 causal 257 hd192", 1, 2, 1, 257, 257, 192, True, torch.float16),
@@ -729,6 +786,27 @@ WIDE_EDGE_SHAPES = [
     ("gqa 4:1 noncausal ragged 193x77 hd256", 1, 4, 1, 193, 77, 256, False, torch.bfloat16),
     ("fp16 cross-length causal 65x190 hd176", 1, 2, 2, 65, 190, 176, True, torch.float16),
 ]
+# Head dims off the 16 grid at the edges of both TMA routes' tiles: a
+# second 64-column box mostly past hd (72, 136, 248), one 64-column box
+# (40), and head dims off the 8 grid through stage_head_dim (100, 129, 7):
+# (label, b, H, KV, q_len, k_len, hd, causal, dtype, route).
+OFF_GRID_EDGE_SHAPES = [
+    ("causal 129 hd72", 1, 2, 2, 129, 129, 72, True, torch.bfloat16, "hopper"),
+    ("gqa 4:1 noncausal ragged 193x77 hd40", 1, 4, 1, 193, 77, 40, False, torch.bfloat16,
+     "hopper"),
+    ("cross-length causal 320x96 hd136", 1, 2, 2, 320, 96, 136, True, torch.bfloat16,
+     "hopper_wide"),
+    ("causal 65 hd248", 1, 2, 2, 65, 65, 248, True, torch.bfloat16, "hopper_wide"),
+    ("staged gqa 2:1 causal 257 hd100", 1, 4, 2, 257, 257, 100, True, torch.bfloat16, "hopper"),
+    ("staged fp16 cross-length causal 65x190 hd129", 1, 2, 2, 65, 190, 129, True,
+     torch.float16, "hopper_wide"),
+    ("staged noncausal 70x33 hd7", 1, 2, 1, 70, 33, 7, False, torch.bfloat16, "hopper"),
+]
+# The plain versions are timed where one fp32 score tensor takes at most this
+# many bytes (the backward holds several); their reference values are
+# computed a few batch rows at a time.
+PLAIN_TIMED_SCORE_BYTES = 2e9
+PLAIN_CHUNK_SCORE_BYTES = 2**30
 
 
 def library_ms(fn):
@@ -747,12 +825,26 @@ def _fwd_errors(o, lse, o_ref, lse_ref):
     return o_err.max().item(), diff.max().item(), (lse - lse_ref).abs().max().item()
 
 
+def _plain_by_batch(fn, *ts, causal, scale):
+    """``fn`` (a plain version) in fp32 on the fp32 upcast of ``ts``, a few
+    batch rows at a time (the function is row-independent); outputs
+    concatenated along the batch."""
+    b, H, ql = ts[0].shape[:3]
+    rows = max(1, int(PLAIN_CHUNK_SCORE_BYTES // (H * ql * ts[1].shape[2] * 4)))
+    parts = [fn(*(t[i:i + rows].float() if t.dtype != torch.float32 else t[i:i + rows]
+                  for t in ts), causal, scale) for i in range(0, b, rows)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+@timed_phase
 def general_kernel_phase(card: str) -> dict:
     """The general forward, dQ and dK/dV kernels against
     ``flash_attention_plain`` / ``flash_attention_bwd_plain`` at
     ``GENERAL_SHAPES``, with times, bounds (fp32 FMA peak for fp32 inputs,
     tensor-core peak for bf16/fp16), plain and SDPA times; the route each
-    shape takes; and the Hopper kernels at b*H = 65,600."""
+    shape takes, whose TMA kernels (``_tma_check``) are checked and timed
+    there too; then the TMA kernels at ``WIDE_EDGE_SHAPES`` and
+    ``OFF_GRID_EDGE_SHAPES``."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import attention as att
@@ -764,35 +856,36 @@ def general_kernel_phase(card: str) -> dict:
         return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
     rows = []
-    max_abs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "wide_fwd": 0.0, "wide_dq": 0.0,
-               "wide_dkv": 0.0, "wide_delta": 0.0}
+    max_abs = {f"{route}_{key}": 0.0 for route in ("general", "hopper", "hopper_wide")
+               for key in ("fwd", "dq", "dkv", "delta")}
     for label, b, H, KV, ql, kl, hd, causal, dtype, route in GENERAL_SHAPES:
         q, do = rand(b, H, ql, hd, dtype=dtype), rand(b, H, ql, hd, dtype=dtype)
         k, v = rand(b, KV, kl, hd, dtype=dtype), rand(b, KV, kl, hd, dtype=dtype)
-        scale = hd**-0.5
+        scale = -hd**-0.5 if route == "general" and dtype != torch.float32 else hd**-0.5
         got_route = att._kernel_route(q, k, scale)
         o, lse = att.flash_general_forward_cuda(q, k, v, causal, scale)
         grads = att.flash_general_backward_cuda(q, k, v, o, lse, do, causal, scale)
         torch.cuda.synchronize()
-        o_ref, lse_ref = att.flash_attention_plain(q.float(), k.float(), v.float(), causal, scale)
-        ref = att.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
-                                            do.float(), causal, scale)
+        o_ref, lse_ref = _plain_by_batch(att.flash_attention_plain, q, k, v, causal=causal,
+                                         scale=scale)
+        ref = _plain_by_batch(att.flash_attention_bwd_plain, q, k, v, o, lse, do, causal=causal,
+                              scale=scale)
         o_tol = GENERAL_O_TOL_FP32 if dtype == torch.float32 else GENERAL_O_TOL_16
         o_err, o_abs, lse_err = _fwd_errors(o, lse, o_ref, lse_ref)
-        row = {"shape": label, "dtype": str(dtype).split(".")[-1], "route": got_route,
-               "o_err": o_err, "o_abs_err": o_abs, "o_tol": o_tol, "lse_err": lse_err,
-               "lse_tol": GENERAL_LSE_TOL, "grad_rel_tol": GRAD_REL_TOL}
+        row = {"shape": label, "dtype": str(dtype).split(".")[-1], "scale": scale,
+               "route": got_route, "o_err": o_err, "o_abs_err": o_abs, "o_tol": o_tol,
+               "lse_err": lse_err, "lse_tol": GENERAL_LSE_TOL, "grad_rel_tol": GRAD_REL_TOL}
         ok = (got_route == route and bool(torch.isfinite(o).all())
               and bool(torch.isfinite(lse).all()) and o_err <= o_tol
               and lse_err <= GENERAL_LSE_TOL)
-        max_abs["fwd"] = max(max_abs["fwd"], o_abs)
+        max_abs["general_fwd"] = max(max_abs["general_fwd"], o_abs)
         for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
             err = (got.float() - want).abs().max().item()
             row[f"{name}_abs_err"] = err
             row[f"{name}_rel_err"] = err / max(want.abs().max().item(), 1e-30)
             ok = ok and bool(torch.isfinite(got).all()) and got.shape == want.shape and (
                 row[f"{name}_rel_err"] <= GRAD_REL_TOL)
-            key = "dq" if name == "dq" else "dkv"
+            key = "general_dq" if name == "dq" else "general_dkv"
             max_abs[key] = max(max_abs[key], err)
         delta = att.flash_general_dq_cuda(q, k, v, o, lse, do, causal, scale)[1]
         row["fwd_ms"] = time_ms(lambda: att.flash_general_forward_cuda(q, k, v, causal, scale))
@@ -800,101 +893,123 @@ def general_kernel_phase(card: str) -> dict:
                                                                  scale))
         row["dkv_ms"] = time_ms(lambda: att.flash_general_dkv_cuda(q, k, v, do, lse, delta,
                                                                    causal, scale))
-        row["plain_fwd_ms"] = time_ms(lambda: att.flash_attention_plain(q, k, v, causal, scale),
-                                      iters=3, warmup=1)
-        row["plain_bwd_ms"] = time_ms(lambda: att.flash_attention_bwd_plain(
-            q, k, v, o, lse, do, causal, scale), iters=3, warmup=1)
+        row["plain_fwd_ms"] = row["plain_bwd_ms"] = None
+        if b * H * ql * kl * 4 <= PLAIN_TIMED_SCORE_BYTES:
+            row["plain_fwd_ms"] = time_ms(lambda: att.flash_attention_plain(q, k, v, causal,
+                                                                            scale),
+                                          iters=3, warmup=1)
+            row["plain_bwd_ms"] = time_ms(lambda: att.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal, scale), iters=3, warmup=1)
         row["library_fwd_ms"] = library_ms(lambda: time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, scale=scale, enable_gqa=H != KV)))
         row["library_bwd_ms"] = library_ms(lambda: sdpa_backward_ms(q, k, v, do, causal, scale))
         for kind in ("fwd", "dq", "dkv"):
             row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = attention_bound_ms(
                 b, H, KV, ql, kl, hd, causal, q.element_size(), card, kind)
-        if route == "hopper_wide":
-            row["wide"] = _wide_check(q, k, v, do, causal, scale, o_ref, lse_ref, timed=True)
+        del o, lse, grads, ref, delta
+        if route in ("hopper", "hopper_wide"):
+            row["tma"] = _tma_check(route, q, k, v, do, causal, scale, o_ref, lse_ref, timed=True)
             for kind in ("fwd", "dq", "dkv"):
-                row["wide"][f"{kind}_bound_ms"] = row[f"{kind}_bound_ms"]
-            log(f"[kernel] flash_wide {label}: " + json.dumps(row["wide"]))
-            ok = ok and row["wide"]["ok"]
+                row["tma"][f"{kind}_bound_ms"] = row[f"{kind}_bound_ms"]
+            log(f"[kernel] flash_{'wide' if route == 'hopper_wide' else 'hopper'} {label}: "
+                + json.dumps(row["tma"]))
+            ok = ok and row["tma"]["ok"]
             for key in ("fwd", "dq", "dkv", "delta"):
-                max_abs[f"wide_{key}"] = max(max_abs[f"wide_{key}"], row["wide"][f"{key}_abs_err"])
-        if route == "hopper":
-            o_h, lse_h = att.flash_forward_cuda(q, k, v, causal, scale)
-            grads_h = att.flash_backward_cuda(q, k, v, o_h, lse_h, do, causal, scale)
-            torch.cuda.synchronize()
-            h_err, h_abs, h_lse = _fwd_errors(o_h, lse_h, o_ref, lse_ref)
-            ref_h = att.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o_h.float(),
-                                                  lse_h, do.float(), causal, scale)
-            h_rel = [(g.float() - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
-                     for g, w in zip(grads_h, ref_h)]
-            row["hopper"] = {"o_err": h_err, "o_abs_err": h_abs, "o_tol": O_TOL,
-                             "lse_err": h_lse, "lse_tol": LSE_TOL, "grad_rel_errs": h_rel,
-                             "fwd_ms": time_ms(lambda: att.flash_forward_cuda(q, k, v, causal,
-                                                                              scale))}
-            ok = ok and h_err <= O_TOL and h_lse <= LSE_TOL and max(h_rel) <= GRAD_REL_TOL
+                max_abs[f"{route}_{key}"] = max(max_abs[f"{route}_{key}"],
+                                                row["tma"][f"{key}_abs_err"])
         log(f"[kernel] flash_general {label} on {card}: " + json.dumps(row))
         if not ok:
-            raise AssertionError(f"flash_general disagrees with its plain version at {label}: "
-                                 f"{row}")
+            raise AssertionError(f"flash_general or the {route} kernels disagree with their "
+                                 f"plain versions at {label}: {row}")
         rows.append(row)
-        del q, k, v, do, o, lse, grads, o_ref, lse_ref, ref
+        del q, k, v, do, o_ref, lse_ref
         torch.cuda.empty_cache()
-    for label, b, H, KV, ql, kl, hd, causal, dtype in WIDE_EDGE_SHAPES:
+    edges = [(*shape, "hopper_wide") for shape in WIDE_EDGE_SHAPES] + OFF_GRID_EDGE_SHAPES
+    for label, b, H, KV, ql, kl, hd, causal, dtype, route in edges:
         q, do = rand(b, H, ql, hd, dtype=dtype), rand(b, H, ql, hd, dtype=dtype)
         k, v = rand(b, KV, kl, hd, dtype=dtype), rand(b, KV, kl, hd, dtype=dtype)
         scale = hd**-0.5
         o_ref, lse_ref = att.flash_attention_plain(q.float(), k.float(), v.float(), causal, scale)
         row = {"shape": label, "route": att._kernel_route(q, k, scale),
-               **_wide_check(q, k, v, do, causal, scale, o_ref, lse_ref, timed=False)}
-        log(f"[kernel] flash_wide {label}: " + json.dumps(row))
-        if not (row["ok"] and row["route"] == "hopper_wide"):
-            raise AssertionError(f"wide kernels disagree with their plain versions at {label}: "
+               **_tma_check(route, q, k, v, do, causal, scale, o_ref, lse_ref, timed=False)}
+        log(f"[kernel] {route} edge {label}: " + json.dumps(row))
+        if not (row["ok"] and row["route"] == route):
+            raise AssertionError(f"{route} kernels disagree with their plain versions at {label}: "
                                  f"{row}")
         for key in ("fwd", "dq", "dkv", "delta"):
-            max_abs[f"wide_{key}"] = max(max_abs[f"wide_{key}"], row[f"{key}_abs_err"])
+            max_abs[f"{route}_{key}"] = max(max_abs[f"{route}_{key}"], row[f"{key}_abs_err"])
     # Keys past every query get exactly zero; inputs the wide kernels do
-    # not take raise.
+    # not take raise (head dims up to 128 are the Hopper kernels', those
+    # off the 8 grid are staged by the ops first).
     q, k, v, do = (rand(1, 2, n, 160, dtype=torch.bfloat16) for n in (64, 200, 200, 64))
     o, lse = att.flash_forward_wide_cuda(q, k, v, True, 0.08)
     _, dk, dv = att.flash_backward_wide_cuda(q, k, v, o, lse, do, True, 0.08)
     if dk[:, :, 64:].count_nonzero() or dv[:, :, 64:].count_nonzero():
         raise AssertionError("wide dK/dV: keys past every query got a gradient")
-    x128, x200 = (rand(1, 2, 8, hd, dtype=torch.bfloat16) for hd in (128, 200))
+    x128, x204, x100 = (rand(1, 2, 8, hd, dtype=torch.bfloat16) for hd in (128, 204, 100))
     for what, bad in (("head_dim 128", lambda: att.flash_forward_wide_cuda(x128, x128, x128,
                                                                            True, 0.08)),
-                      ("head_dim 200", lambda: att.flash_forward_wide_cuda(x200, x200, x200,
+                      ("head_dim 204", lambda: att.flash_forward_wide_cuda(x204, x204, x204,
                                                                            True, 0.08)),
+                      ("head_dim 100", lambda: att.flash_forward_cuda(x100, x100, x100,
+                                                                      True, 0.1)),
                       ("scale <= 0", lambda: att.flash_forward_wide_cuda(q, k, v, True, -0.08))):
         try:
             bad()
         except ValueError as e:
-            log(f"[kernel] wide kernel rejected {what} as expected: {e}")
+            log(f"[kernel] TMA kernel rejected {what} as expected: {e}")
         else:
-            raise AssertionError(f"the wide forward accepted {what}")
+            raise AssertionError(f"a TMA kernel's wrapper accepted {what}")
     head = next(r for r in rows if r["shape"] == GENERAL_HEAD_LABEL)
-    return {"rows": rows, "max_abs": max_abs, "head": head}
+    general_head = next(r for r in rows if r["shape"] == GENERAL_FP32_LABEL)
+    return {"rows": rows, "max_abs": max_abs, "head": head, "general_head": general_head}
 
 
-def _wide_check(q, k, v, do, causal, scale, o_ref, lse_ref, timed: bool) -> dict:
-    """The wide forward and the wide backward (the wide dQ, then the wide
+# Each TMA route's forward, dQ and dK/dV launch wrappers.
+_TMA_WRAPPERS = {
+    "hopper": ("flash_forward_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda"),
+    "hopper_wide": ("flash_forward_wide_cuda", "flash_bwd_dq_wide_cuda",
+                    "flash_bwd_dkv_wide_cuda"),
+}
+
+
+def _tma_check(route, q, k, v, do, causal, scale, o_ref, lse_ref, timed: bool) -> dict:
+    """The ``route``'s forward and backward kernels (its dQ, then its
     dK/dV) against the plain versions on the same inputs (``O_TOL``
     absolute, ``LSE_TOL``, dQ/dK/dV within ``GRAD_REL_TOL`` of the largest
     value, the dQ kernel's delta within ``DELTA_REL_TOL`` of rowsum(dO * O)
     in torch); dQ and dK/dV each run twice must agree bitwise (no atomics).
-    ``timed`` adds the wide kernels' times."""
+    A head dim off the 8 grid runs the kernels on q, k, v, o and do
+    zero-padded to the next multiple of 8 and holds what comes back sliced;
+    the ops (``_flash_fwd_cuda``, ``_flash_bwd_cuda``) must then give those
+    outputs bit for bit, each counting one ``stage_head_dim`` use.
+    ``timed`` adds the kernels' times (at the padded width) and the staged
+    ops' (the copies included)."""
+    import torch.nn.functional as F
+
     from ray_tpu_torch.ops import attention as att
 
-    o, lse = att.flash_forward_wide_cuda(q, k, v, causal, scale)
-    dq_runs = [att.flash_bwd_dq_wide_cuda(q, k, v, o, lse, do, causal, scale) for _ in range(2)]
-    dq, delta = dq_runs[0]
-    runs = [att.flash_bwd_dkv_wide_cuda(q, k, v, do, lse, delta, causal, scale)
-            for _ in range(2)]
+    fwd, dq_fn, dkv_fn = (getattr(att, name) for name in _TMA_WRAPPERS[route])
+    hd = q.shape[-1]
+    width = att.tma_head_dim(hd)
+    staged = width != hd
+
+    def pad(t):
+        return F.pad(t, (0, width - hd)) if staged else t
+
+    qp, kp, vp, dop = (pad(t) for t in (q, k, v, do))
+    o_p, lse = fwd(qp, kp, vp, causal, scale)
+    dq_runs = [dq_fn(qp, kp, vp, o_p, lse, dop, causal, scale) for _ in range(2)]
+    delta = dq_runs[0][1]
+    runs = [dkv_fn(qp, kp, vp, dop, lse, delta, causal, scale) for _ in range(2)]
     torch.cuda.synchronize()
-    ref = att.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
-                                        do.float(), causal, scale)
+    o, dq, dk, dv = (t[..., :hd].contiguous() for t in (o_p, dq_runs[0][0], *runs[0]))
+    ref = _plain_by_batch(att.flash_attention_bwd_plain, q, k, v, o, lse, do, causal=causal,
+                          scale=scale)
     delta_ref = (do.float() * o.float()).sum(-1)
     _, o_abs, lse_err = _fwd_errors(o, lse, o_ref, lse_ref)
-    row = {"fwd_abs_err": o_abs, "o_tol": O_TOL, "lse_err": lse_err, "lse_tol": LSE_TOL,
+    row = {"route": route, "head_dim": hd, "kernel_head_dim": width,
+           "fwd_abs_err": o_abs, "o_tol": O_TOL, "lse_err": lse_err, "lse_tol": LSE_TOL,
            "grad_rel_tol": GRAD_REL_TOL,
            "delta_abs_err": (delta - delta_ref).abs().max().item(),
            "delta_rel_tol": DELTA_REL_TOL,
@@ -905,7 +1020,7 @@ def _wide_check(q, k, v, do, causal, scale, o_ref, lse_ref, timed: bool) -> dict
           and lse_err <= LSE_TOL and row["dq_bitwise_repeatable"]
           and row["dkv_bitwise_repeatable"] and row["delta_rel_err"] <= DELTA_REL_TOL)
     dkv_abs = 0.0
-    for name, got, want in zip(("dq", "dk", "dv"), (dq, *runs[0]), ref):
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
         err = (got.float() - want).abs().max().item()
         row[f"{name}_abs_err"] = err
         row[f"{name}_rel_err"] = err / max(want.abs().max().item(), 1e-30)
@@ -914,12 +1029,25 @@ def _wide_check(q, k, v, do, causal, scale, o_ref, lse_ref, timed: bool) -> dict
         if name != "dq":
             dkv_abs = max(dkv_abs, err)
     row["dkv_abs_err"] = dkv_abs
+    del ref
+    if staged:
+        uses = att.stage_head_dim.uses
+        so, slse = att._flash_fwd_cuda(q, k, v, causal, scale)
+        sgrads = att._flash_bwd_cuda(q, k, v, o, lse, do, causal, scale)
+        torch.cuda.synchronize()
+        row["staged_uses"] = att.stage_head_dim.uses - uses
+        row["staged_ops_bit_equal"] = (torch.equal(so, o) and torch.equal(slse, lse) and all(
+            torch.equal(a, b) for a, b in zip(sgrads, (dq, dk, dv))))
+        ok = ok and row["staged_uses"] == 2 and row["staged_ops_bit_equal"]
+        del so, slse, sgrads
     if timed:
-        row["fwd_ms"] = time_ms(lambda: att.flash_forward_wide_cuda(q, k, v, causal, scale))
-        row["dq_ms"] = time_ms(lambda: att.flash_bwd_dq_wide_cuda(q, k, v, o, lse, do, causal,
-                                                                  scale))
-        row["dkv_ms"] = time_ms(lambda: att.flash_bwd_dkv_wide_cuda(q, k, v, do, lse, delta,
-                                                                     causal, scale))
+        row["fwd_ms"] = time_ms(lambda: fwd(qp, kp, vp, causal, scale))
+        row["dq_ms"] = time_ms(lambda: dq_fn(qp, kp, vp, o_p, lse, dop, causal, scale))
+        row["dkv_ms"] = time_ms(lambda: dkv_fn(qp, kp, vp, dop, lse, delta, causal, scale))
+        if staged:
+            row["staged_fwd_ms"] = time_ms(lambda: att._flash_fwd_cuda(q, k, v, causal, scale))
+            row["staged_bwd_ms"] = time_ms(lambda: att._flash_bwd_cuda(q, k, v, o, lse, do,
+                                                                       causal, scale))
     row["ok"] = ok
     return row
 
@@ -932,7 +1060,7 @@ def profile_pass(eng, prompts, n_new, label: str, card: str) -> dict:
 def train_config(remat_policy: str = "full", n_heads: int = 18):
     """The 750M flagship config of ``bench.py:67-77``: full width, full depth;
     ``n_heads`` q and kv heads (18 of 128 there; 9 of 256 take the wide
-    route)."""
+    route; 32 of 72, off the 16 grid, the Hopper route)."""
     from ray_tpu_torch.models import transformer as tf
 
     return tf.TransformerConfig(vocab_size=32000, d_model=2304, n_layers=10, n_heads=n_heads,
@@ -952,25 +1080,35 @@ def _counted():
 
 
 def launch_counts():
-    return {key: fn.launches for key, fn in _counted().items()}
+    """Every kernel's launches, and (``staged``) the ops' calls through
+    ``stage_head_dim``'s zero-padded copy."""
+    from ray_tpu_torch.ops import attention as att
+
+    return {**{key: fn.launches for key, fn in _counted().items()},
+            "staged": att.stage_head_dim.uses}
 
 
 def reset_launch_counts():
+    from ray_tpu_torch.ops import attention as att
+
     for fn in _counted().values():
         fn.launches = 0
+    att.stage_head_dim.uses = 0
 
 
 def no_general(per_step: dict) -> dict:
-    """``per_step`` Hopper launches and no general or wide ones."""
+    """``per_step`` Hopper launches and no general or wide ones, and no
+    staged copy."""
     return {**per_step, "general_fwd": 0, "general_dq": 0, "general_dkv": 0, "wide_fwd": 0,
-            "wide_dq": 0, "wide_dkv": 0}
+            "wide_dq": 0, "wide_dkv": 0, "staged": 0}
 
 
 def train_launches_per_step(cfg, policy: str) -> dict:
     """The kernels one train step launches: each layer's forward twice
     under "full" and "dots" (forward and recompute), once under "attn",
-    one dQ and one dK/dV; on the Hopper route up to head dim 128, else on
-    the wide route."""
+    one dQ and one dK/dV; on the Hopper route up to head dim 128 (18 heads
+    of 128, 32 of 72), else on the wide route (9 of 256); no staged copy
+    (every head dim here is a multiple of 8)."""
     L = cfg.n_layers
     fwd = (1 if policy == "attn" else 2) * L
     if cfg.head_dim <= 128:
@@ -1023,6 +1161,7 @@ def profile_step(fn, label: str, card: str) -> dict:
 POLICY_LOSS_REL_TOL = 1e-3
 
 
+@timed_phase
 def training_phase(card: str, smi: str, policy: str = "full", profile: bool = False,
                    n_heads: int = 18, warmup: int = 2, steps: int = 8) -> dict:
     """``make_train_step`` on the 750M config with ``n_heads`` heads under
@@ -1100,6 +1239,7 @@ def training_phase(card: str, smi: str, policy: str = "full", profile: bool = Fa
     return result
 
 
+@timed_phase
 def grad_check_phase(card: str, n_heads: int = 18) -> dict:
     """Loss and every gradient of the 750M model (``n_heads`` heads) on one
     1 x 2048 batch, through the kernels and through plain attention under
@@ -1158,11 +1298,14 @@ def grad_check_phase(card: str, n_heads: int = 18) -> dict:
     return result
 
 
-# The wide-head flagship: 9 q and 9 kv heads of 256 (d_model 2304 / 9), 1
-# warm-up and 4 timed steps.
+# The wide-head flagship: 9 q and 9 kv heads of 256 (d_model 2304 / 9); the
+# hd-72 flagship: 32 q and 32 kv heads of 72 (d_model 2304 / 32, off the 16
+# grid); each 1 warm-up and 4 timed steps.
 WIDE_HEADS = 9
+OFF_GRID_HEADS = 32
 
 
+@timed_phase
 def wide_training_phase(card: str, smi: str, profile: bool = False) -> dict:
     """The wide-head flagship trains through the wide route: 5 steps of
     ``training_phase`` (the loss falls; 20 wide forwards, 10 wide dQ and
@@ -1174,6 +1317,19 @@ def wide_training_phase(card: str, smi: str, profile: bool = False) -> dict:
     return {"train": run, "grad_check": grads}
 
 
+@timed_phase
+def off_grid_training_phase(card: str, smi: str, profile: bool = False) -> dict:
+    """The hd-72 flagship trains through the Hopper kernels at a head dim
+    off the 16 grid: 5 steps of ``training_phase`` (the loss falls; 20
+    Hopper forwards, 10 dQ and 10 dK/dV launches a step, no general or
+    wide launch and no staged copy; ``profile`` adds a profiled step), then
+    its gradient check against plain attention."""
+    run = training_phase(card, smi, "full", profile=profile, n_heads=OFF_GRID_HEADS, warmup=1,
+                         steps=4)
+    grads = grad_check_phase(card, n_heads=OFF_GRID_HEADS)
+    return {"train": run, "grad_check": grads}
+
+
 # fp32 model, kernels (general route) vs plain attention: fp32 on both sides
 # (TF32 off), sums in another order through 2 layers; relative errors of
 # ~1e-6 are expected, so 1e-5 on the loss and 1e-3 of each gradient's
@@ -1182,6 +1338,7 @@ FP32_LOSS_REL_TOL = 1e-5
 FP32_GRAD_REL_TOL = 1e-3
 
 
+@timed_phase
 def fp32_training_phase(card: str) -> dict:
     """A 2-layer fp32 model (d_model 512, 8 q / 4 kv heads, remat "full")
     trains 3 steps through ``make_train_step``: every step launches each
@@ -1213,7 +1370,7 @@ def fp32_training_phase(card: str) -> dict:
         losses.append(float(m["loss"]))
     launches = launch_counts()
     want = {"fwd": 0, "dq": 0, "dkv": 0, "general_fwd": 2 * L * steps, "general_dq": L * steps,
-            "general_dkv": L * steps, "wide_fwd": 0, "wide_dq": 0, "wide_dkv": 0}
+            "general_dkv": L * steps, "wide_fwd": 0, "wide_dq": 0, "wide_dkv": 0, "staged": 0}
     if launches != want:
         raise AssertionError(f"fp32 training launches {launches} != {want}")
 
@@ -1245,6 +1402,7 @@ def fp32_training_phase(card: str) -> dict:
     return result
 
 
+@timed_phase
 def slice_phase(card: str, profile: bool = False) -> dict:
     from ray_tpu_torch.models import transformer as tf
     from ray_tpu_torch.models.paged import PagedConfig
@@ -1544,6 +1702,7 @@ def _card_id() -> str:
     return NvidiaGPUAcceleratorManager.get_node_accelerator_ids(1)[0]
 
 
+@timed_phase
 def runtime_phase(card: str, smi: str, cluster: dict) -> dict:
     """Serve llama7b from a GPU actor of the port's runtime (``cluster``,
     from ``port_cluster()``) and hold its tokens to this process's own
@@ -1741,6 +1900,7 @@ def _counts_match_prefills(launches: dict, n_layers: int, prefills: int, what: s
                              f"({n_layers} x {prefills} full-prompt prefills, nothing else)")
 
 
+@timed_phase
 def serve_phase(card: str, smi: str, cluster: dict, direct: dict) -> dict:
     """Serve llama7b through ``ray_tpu_torch.serve``: a ``num_gpus=1``
     replica of ``ServeLLM`` behind the HTTP proxy, on the runtime phase's
@@ -2051,6 +2211,7 @@ def train_worker_loop(config):
             shutil.rmtree(staging)
 
 
+@timed_phase
 def train_runtime_phase(card: str, smi: str, cluster: dict, direct: dict) -> dict:
     """Train the 750M flagship from a ``num_gpus=1`` ``CudaTrainer`` worker
     on the runtime phase's cluster (``train_worker_loop``), fed by its
@@ -2311,6 +2472,7 @@ def job_main():
     rt.shutdown()
 
 
+@timed_phase
 def tune_phase(card: str, smi: str, cluster: dict, direct: dict) -> dict:
     """Two ``num_gpus=1`` Tune trials of the 750M flagship on the runtime
     phase's cluster (``tune_trial_loop``, one per lr of ``TUNE_LRS``): held
@@ -2811,6 +2973,7 @@ def _launcher(smi: str, tmp: str) -> dict:
     return res
 
 
+@timed_phase
 def cli_phase(card: str, smi: str, direct: dict) -> dict:
     """The CLI and launcher phase, after ``port_cluster()`` has shut down,
     under a ``RAY_TPU_TORCH_TMPDIR`` and ``HOME`` of its own (the CLI's
@@ -3056,6 +3219,7 @@ def _timed_iterations(algo, n: int, kill_at=None):
     return steps / (time.perf_counter() - t0), results
 
 
+@timed_phase
 def rl_phase(card: str, smi: str) -> dict:
     """PPO (synchronous, then the podracer with a runner killed mid-run) and
     IMPALA (podracer) train CartPole from CPU runner actors with the learner
@@ -3389,6 +3553,7 @@ def _first_update_against_cpu(algo, loss_fn, what: str) -> dict:
     return check
 
 
+@timed_phase
 def rl_offpolicy_phase(card: str, smi: str) -> dict:
     """DQN with prioritized replay and SAC train CartPole from CPU runner
     actors with the learner on the card; CQL, BC and MARWIL train offline
@@ -3662,6 +3827,7 @@ def vit_flops_per_image(cfg) -> float:
     return S * (6 * vit.num_params(cfg) + 12 * cfg.n_layers * cfg.d_model * S)
 
 
+@timed_phase
 def vit_phase(card: str, smi: str, profile: bool = False) -> dict:
     """ViT-B/16 at full width on the card: bf16 logits against the CPU's
     fp32 forward of the same weights, then 2 warm-up and 10 timed Adam
@@ -3957,6 +4123,7 @@ def local_shape_kernel_check(shapes) -> list:
     return rows
 
 
+@timed_phase
 def parallel_phase(card: str, smi: str) -> dict:
     """The 750M flagship under each PARALLEL_PLANS plan, its ranks spawned
     processes on cuda:0 over gloo, held to the bare single-process step on
@@ -4156,6 +4323,7 @@ def mpmd_rank(rank: int, world: int, port: int, results):
                                             f"{traceback.format_exc()}"})
 
 
+@timed_phase
 def mpmd_phase(card: str, smi: str, bare=None, profile: bool = False) -> dict:
     """The 750M flagship over MPMD_STAGES stages: the single-process
     ``MpmdPipeline`` on cuda:0 in ``full_head`` and ``per_microbatch``,
@@ -4294,8 +4462,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true", help="build + kernel phases only")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile a training step (18 and 9 heads), a prefill, a decode "
-                         "pass and a ViT step")
+                    help="also profile a training step (18, 9 and 32 heads), a prefill, a "
+                         "decode pass and a ViT step")
     ap.add_argument("--rl-only", action="store_true",
                     help="only the RL phases (12, 13), on their own port cluster (no kernel build)")
     ap.add_argument("--vit-only", action="store_true",
@@ -4313,8 +4481,9 @@ def main() -> int:
                     help="only the kernel build and the MPMD phase (18): the 750M flagship "
                          "over 2 stages, in one process and as a 2-rank gang sharing the card")
     ap.add_argument("--wide-only", action="store_true",
-                    help="only the kernel build, the general-kernel phase (4, with the wide "
-                         "kernels) and the wide-head flagship (7)")
+                    help="only the kernel build, the general-kernel phase (4, with the "
+                         "Hopper and wide kernels beside it) and the wide-head and hd-72 "
+                         "flagships (7)")
     ap.add_argument("--cli-job", action="store_true",
                     help="run as the CLI phase's submitted job (cli_job_main), not as the smoke")
     args = ap.parse_args()
@@ -4360,6 +4529,7 @@ def main() -> int:
         _build.build_all()
         general_kernel_phase(card)
         wide_training_phase(card, smi, profile=args.profile)
+        off_grid_training_phase(card, smi, profile=args.profile)
         return 0
     if args.cli_only:
         thread_launch_check()
@@ -4396,6 +4566,7 @@ def main() -> int:
     mpmd_launches = {key: None for key in _counted()}
     cli_launches = autoscaled_launches = {key: None for key in ("fwd", "dq", "dkv")}
     wide_launches = {key: None for key in _counted()}
+    off_grid_launches = {key: None for key in _counted()}
     by_policy = {}
     if not args.kernels_only:
         runs = {policy: training_phase(card, smi, policy, profile=args.profile)
@@ -4432,6 +4603,8 @@ def main() -> int:
         grad_check_phase(card)
         wide = wide_training_phase(card, smi, profile=args.profile)
         wide_launches = wide["train"]["launches"]
+        off_grid_launches = off_grid_training_phase(card, smi,
+                                                    profile=args.profile)["train"]["launches"]
         sl = slice_phase(card, profile=args.profile)
         serving_launches = sl["main"]["flash_fwd_launches"]
         torch.cuda.empty_cache()
@@ -4451,39 +4624,53 @@ def main() -> int:
         tune_launches = tuned["tune_trial_launches"]
         job_launches = tuned["job"]["launches"]["fwd"]
     head, ftrain, btrain, bgqa = kern["head"], kern["train"], bwd["train"], bwd["gqa"]
-    ghead = gen["head"]
-    general_note = ("launches: the fp32 training run (the general route's main path); "
-                    "plain_ms and library_ms of dq and dkv cover the whole backward")
+    ghead, whead = gen["general_head"], gen["head"]
+
+    def plain(row, kind):
+        return row["plain_fwd_ms" if kind == "fwd" else "plain_bwd_ms"]
+
+    def library(row, kind):
+        return row["library_fwd_ms" if kind == "fwd" else "library_bwd_ms"]
+
+    def route_shapes(route, kind):
+        """The TMA kernel of ``kind`` on ``route`` at the general phase's
+        shapes: its time, bound, the general kernel's time there (earlier)
+        and the library's; staged rows with the ops' times."""
+        return [{"shape": r["shape"], "ms": r["tma"][f"{kind}_ms"],
+                 "bound_ms": r[f"{kind}_bound_ms"], "earlier_ms": r[f"{kind}_ms"],
+                 "library_ms": library(r, kind),
+                 **({"staged_ms": r["tma"]["staged_fwd_ms" if kind == "fwd" else "staged_bwd_ms"]}
+                    if "staged_fwd_ms" in r["tma"] else {})}
+                for r in gen["rows"] if r.get("tma", {}).get("route") == route]
+
+    general_note = ("launches: the fp32 training run (the general route's main path: fp32 and "
+                    "scale <= 0); plain_ms and library_ms of dq and dkv cover the whole backward")
     general_rows = [
         kernel_row(f"flash_general_{kind}", "ray_tpu_torch/ops/csrc/flash_general.cu",
                    f"ray_tpu/ops/attention.py:{line}",
                    None if general_launches is None else general_launches[f"general_{kind}"],
-                   gen["max_abs"][kind], ghead[f"{kind}_ms"],
-                   ghead["plain_fwd_ms" if kind == "fwd" else "plain_bwd_ms"],
-                   (ghead[f"{kind}_bound_ms"], ghead[f"{kind}_bound_by"]),
-                   ghead["library_fwd_ms" if kind == "fwd" else "library_bwd_ms"],
+                   gen["max_abs"][f"general_{kind}"], ghead[f"{kind}_ms"], plain(ghead, kind),
+                   (ghead[f"{kind}_bound_ms"], ghead[f"{kind}_bound_by"]), library(ghead, kind),
                    ghead["shape"], smi, sass=sass["flash_general"], note=general_note,
                    parallel_launches=parallel_launches[f"general_{kind}"],
                    mpmd_launches=mpmd_launches[f"general_{kind}"],
                    wide_training_launches=wide_launches[f"general_{kind}"],
-                   shapes=[{"shape": r["shape"], "ms": r[f"{kind}_ms"],
-                            "bound_ms": r[f"{kind}_bound_ms"],
-                            "plain_ms": r["plain_fwd_ms" if kind == "fwd" else "plain_bwd_ms"],
-                            "library_ms": r["library_fwd_ms" if kind == "fwd"
-                                            else "library_bwd_ms"]} for r in gen["rows"]])
+                   off_grid_training_launches=off_grid_launches[f"general_{kind}"],
+                   shapes=[{"shape": r["shape"], "route": r["route"], "ms": r[f"{kind}_ms"],
+                            "bound_ms": r[f"{kind}_bound_ms"], "plain_ms": plain(r, kind),
+                            "library_ms": library(r, kind)} for r in gen["rows"]])
         for kind, line in (("fwd", 56), ("dq", 201), ("dkv", 262))]
-    wide_dq_checks = {"bitwise_repeatable": all(r["wide"]["dq_bitwise_repeatable"]
-                                                for r in gen["rows"] if "wide" in r),
-                      "delta_max_abs_err": gen["max_abs"]["wide_delta"]}
+    wide_dq_checks = {"bitwise_repeatable": all(
+        r["tma"]["dq_bitwise_repeatable"] for r in gen["rows"]
+        if r.get("tma", {}).get("route") == "hopper_wide"),
+                      "delta_max_abs_err": gen["max_abs"]["hopper_wide_delta"]}
     wide_rows = [
         kernel_row(f"flash_{name}", f"ray_tpu_torch/ops/csrc/flash_{name}.cu",
                    f"ray_tpu/ops/attention.py:{line}", wide_launches[f"wide_{kind}"],
-                   gen["max_abs"][f"wide_{kind}"], ghead["wide"][f"{kind}_ms"],
-                   ghead["plain_fwd_ms" if kind == "fwd" else "plain_bwd_ms"],
-                   (ghead[f"{kind}_bound_ms"], ghead[f"{kind}_bound_by"]),
-                   ghead["library_fwd_ms" if kind == "fwd" else "library_bwd_ms"],
-                   ghead["shape"], smi, sass=sass[f"flash_{name}"],
-                   earlier_ms=ghead[f"{kind}_ms"],
+                   gen["max_abs"][f"hopper_wide_{kind}"], whead["tma"][f"{kind}_ms"],
+                   plain(whead, kind), (whead[f"{kind}_bound_ms"], whead[f"{kind}_bound_by"]),
+                   library(whead, kind), whead["shape"], smi, sass=sass[f"flash_{name}"],
+                   earlier_ms=whead[f"{kind}_ms"],
                    note="launches: the wide-head flagship's 5 training steps; earlier_ms: the "
                         "general kernel at the same shape"
                         + ("" if kind == "fwd" else "; plain_ms and library_ms cover the whole "
@@ -4492,12 +4679,8 @@ def main() -> int:
                    **(wide_dq_checks if kind == "dq" else {}),
                    parallel_launches=parallel_launches[f"wide_{kind}"],
                    mpmd_launches=mpmd_launches[f"wide_{kind}"],
-                   shapes=[{"shape": r["shape"], "ms": r["wide"][f"{kind}_ms"],
-                            "bound_ms": r[f"{kind}_bound_ms"],
-                            "earlier_ms": r[f"{kind}_ms"],
-                            "library_ms": r["library_fwd_ms" if kind == "fwd"
-                                            else "library_bwd_ms"]}
-                           for r in gen["rows"] if "wide" in r])
+                   off_grid_training_launches=off_grid_launches[f"wide_{kind}"],
+                   shapes=route_shapes("hopper_wide", kind))
         for name, kind, line in (("fwd_wide", "fwd", 56), ("bwd_wide", "dq", 201),
                                  ("bwd_dkv_wide", "dkv", 262))]
     by_policy_launches = {policy: row["launches_per_step"] for policy, row in by_policy.items()}
@@ -4517,7 +4700,10 @@ def main() -> int:
                    serving_shape=head["shape"],
                    serving_ms=head["ms"], serving_plain_ms=head["plain_ms"],
                    serving_bound_ms=head["bound_ms"], serving_library_ms=head["library_ms"],
-                   launches_per_step_by_policy=by_policy_launches, sass=sass["flash_fwd"]),
+                   launches_per_step_by_policy=by_policy_launches, sass=sass["flash_fwd"],
+                   off_grid_training_launches=off_grid_launches["fwd"],
+                   off_grid_shapes=route_shapes("hopper", "fwd"),
+                   off_grid_max_abs_err=gen["max_abs"]["hopper_fwd"]),
         kernel_row("flash_bwd_dq", "ray_tpu_torch/ops/csrc/flash_bwd.cu",
                    "ray_tpu/ops/attention.py:201", launches["dq"], bwd["max_abs"]["dq"],
                    btrain["dq_ms"], btrain["plain_ms"],
@@ -4536,8 +4722,13 @@ def main() -> int:
                    gqa_shape=bgqa["shape"], gqa_ms=bgqa["dq_ms"],
                    gqa_bound_ms=bgqa["dq_bound_ms"], gqa_plain_ms=bgqa["plain_ms"],
                    gqa_library_ms=bgqa["library_ms"],
+                   off_grid_training_launches=off_grid_launches["dq"],
+                   off_grid_shapes=route_shapes("hopper", "dq"),
+                   off_grid_max_abs_err=gen["max_abs"]["hopper_dq"],
                    note="plain_ms and library_ms cover the whole backward (dq, dk, dv); "
-                        "the kernel also computes delta, which delta_torch_ms timed in torch"),
+                        "the kernel also computes delta, which delta_torch_ms timed in torch; "
+                        "off_grid_shapes: head dims off the 16 grid, earlier_ms the general "
+                        "kernel there, staged_ms the staged op's whole backward"),
         kernel_row("flash_bwd_dkv", "ray_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
                    "ray_tpu/ops/attention.py:262", launches["dkv"], bwd["max_abs"]["dkv"],
                    btrain["dkv_ms"], btrain["plain_ms"],
@@ -4554,6 +4745,9 @@ def main() -> int:
                    gqa_shape=bgqa["shape"], gqa_ms=bgqa["dkv_ms"],
                    gqa_bound_ms=bgqa["dkv_bound_ms"], gqa_plain_ms=bgqa["plain_ms"],
                    gqa_library_ms=bgqa["library_ms"],
+                   off_grid_training_launches=off_grid_launches["dkv"],
+                   off_grid_shapes=route_shapes("hopper", "dkv"),
+                   off_grid_max_abs_err=gen["max_abs"]["hopper_dkv"],
                    note="plain_ms and library_ms cover the whole backward (dq, dk, dv)"),
     ] + general_rows + wide_rows
     print(json.dumps({"kernels": kernels}), flush=True)

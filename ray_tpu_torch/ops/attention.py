@@ -14,15 +14,19 @@ and never materialise repeated K/V.
   kernels (built at first launch) on one of three routes, chosen by
   ``_kernel_route`` from dtype, head dim and scale:
   - "hopper" (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` for dQ,
-    ``csrc/flash_bwd_dkv.cu`` for dK/dV): bf16/fp16, head dim a multiple
-    of 16 up to 128, scale > 0;
+    ``csrc/flash_bwd_dkv.cu`` for dK/dV): bf16/fp16, head dim up to 128,
+    scale > 0;
   - "hopper_wide" (``csrc/flash_fwd_wide.cu``, ``csrc/flash_bwd_wide.cu``
     for dQ, ``csrc/flash_bwd_dkv_wide.cu`` for dK/dV): bf16/fp16, head dim
-    a multiple of 16 in 144-256, scale > 0;
-  - "general" (``csrc/flash_general.cu``, SIMT): everything else up to
-    head dim 256 (fp32, head dims off the 16 grid, scale <= 0).
-  On CPU tensors the ops run the plain versions. A CUDA input no route
-  takes raises; nothing falls back to the plain version on the card.
+    129-256, scale > 0;
+  - "general" (``csrc/flash_general.cu``, SIMT): fp32 and ``scale <= 0``,
+    up to head dim 256.
+  The TMA kernels of the first two take head dims that are multiples of 8
+  (a TMA row is a multiple of 16 bytes) and zero-fill the columns up to
+  their tile width; any other head dim goes through one zero-padded copy
+  to the next multiple of 8 (``stage_head_dim``). On CPU tensors the ops
+  run the plain versions. A CUDA input no route takes raises; nothing
+  falls back to the plain version on the card.
 - ``flash_attention_plain`` / ``flash_attention_bwd_plain``: the kernels'
   functions in plain PyTorch, with the kernels' TOP-LEFT causal
   convention (``q_id >= k_id``, as ``_flash_fwd_kernel`` and the backward
@@ -43,9 +47,13 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float16)
 # The routes whose kernels are built on TMA and wgmma (16-byte aligned
-# 16-bit inputs), and the head dims the wide one takes.
+# 16-bit inputs): the head dims each takes, and the grain of the head dims
+# their tensor maps take (rows of a multiple of 16 bytes). The wide route
+# starts where the Hopper tiles (D <= 128) end, at D = 192.
 _TMA_ROUTES = ("hopper", "hopper_wide")
-WIDE_MIN_HEAD_DIM = 144
+HOPPER_MAX_HEAD_DIM = 128
+WIDE_MIN_HEAD_DIM = HOPPER_MAX_HEAD_DIM + 1
+TMA_HEAD_DIM_GRAIN = 8
 # The general kernels' element types, by the code their entry points take.
 _GENERAL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 GENERAL_MAX_HEAD_DIM = 256
@@ -139,23 +147,22 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool, scale: float):
 
 def _kernel_route(q, k, scale: float) -> str:
     """Which kernels take these inputs on the card. For bf16/fp16 q and k
-    of one dtype, a head dim that is a multiple of 16 and ``scale > 0``:
-    ``"hopper"`` up to head dim 128 (the TMA/``wgmma`` kernels of
-    ``csrc/flash_fwd.cu``, ``flash_bwd.cu`` and ``flash_bwd_dkv.cu``) and
-    ``"hopper_wide"`` in 144-256 (``csrc/flash_fwd_wide.cu``,
-    ``flash_bwd_wide.cu`` and ``flash_bwd_dkv_wide.cu``); ``"general"``
-    (``csrc/flash_general.cu``) for every other input. A pure function of
-    shape, dtype and scale: it is not a fallback, and every route raises
-    on a failed build or launch. Raises above head dim 256, which no route
-    takes (the reference's Pallas kernels take any head dim)."""
+    of one dtype and ``scale > 0``: ``"hopper"`` up to head dim 128 (the
+    TMA/``wgmma`` kernels of ``csrc/flash_fwd.cu``, ``flash_bwd.cu`` and
+    ``flash_bwd_dkv.cu``) and ``"hopper_wide"`` in 129-256
+    (``csrc/flash_fwd_wide.cu``, ``flash_bwd_wide.cu`` and
+    ``flash_bwd_dkv_wide.cu``), a head dim off the 8 grid through one
+    zero-padded copy (``stage_head_dim``); ``"general"``
+    (``csrc/flash_general.cu``) for fp32 and ``scale <= 0``. A pure
+    function of shape, dtype and scale: it is not a fallback, and every
+    route raises on a failed build or launch. Raises above head dim 256,
+    which no route takes (the reference's Pallas kernels take any head
+    dim)."""
     hd = q.shape[-1]
     if hd > GENERAL_MAX_HEAD_DIM:
         raise ValueError(f"flash_attention kernels: head_dim {hd} > {GENERAL_MAX_HEAD_DIM}")
-    if q.dtype in _KERNEL_DTYPES and k.dtype == q.dtype and hd % 16 == 0 and scale > 0:
-        if hd <= 128:
-            return "hopper"
-        if hd >= WIDE_MIN_HEAD_DIM:
-            return "hopper_wide"
+    if q.dtype in _KERNEL_DTYPES and k.dtype == q.dtype and scale > 0:
+        return "hopper" if hd <= HOPPER_MAX_HEAD_DIM else "hopper_wide"
     return "general"
 
 
@@ -181,11 +188,13 @@ def _check_kernel_inputs(q, k, v, route: str = "hopper"):
     b, H, q_len, hd = q.shape
     if k.shape[0] != b or k.shape[3] != hd or H % k.shape[1]:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)}")
-    if route == "hopper" and (hd % 16 or hd > 128):
-        raise ValueError(f"flash_attention kernel: head_dim {hd} must be a multiple of 16, <= 128")
-    if route == "hopper_wide" and (hd % 16 or not WIDE_MIN_HEAD_DIM <= hd <= GENERAL_MAX_HEAD_DIM):
-        raise ValueError(f"flash_attention wide kernels: head_dim {hd} must be a multiple of 16 "
-                         f"in [{WIDE_MIN_HEAD_DIM}, {GENERAL_MAX_HEAD_DIM}]")
+    if route == "hopper" and (hd % TMA_HEAD_DIM_GRAIN or hd > HOPPER_MAX_HEAD_DIM):
+        raise ValueError(f"flash_attention kernel: head_dim {hd} must be a multiple of "
+                         f"{TMA_HEAD_DIM_GRAIN}, <= {HOPPER_MAX_HEAD_DIM}")
+    if route == "hopper_wide" and (hd % TMA_HEAD_DIM_GRAIN
+                                   or not WIDE_MIN_HEAD_DIM <= hd <= GENERAL_MAX_HEAD_DIM):
+        raise ValueError(f"flash_attention wide kernels: head_dim {hd} must be a multiple of "
+                         f"{TMA_HEAD_DIM_GRAIN} in [{WIDE_MIN_HEAD_DIM}, {GENERAL_MAX_HEAD_DIM}]")
     if not 0 < hd <= GENERAL_MAX_HEAD_DIM:
         raise ValueError(f"flash_attention general kernels: head_dim {hd} must be in "
                          f"[1, {GENERAL_MAX_HEAD_DIM}]")
@@ -371,7 +380,7 @@ def flash_general_backward_cuda(q, k, v, o, lse, do, causal: bool, scale: float)
 
 def flash_forward_wide_cuda(q, k, v, causal: bool, scale: float):
     """Launch the wide forward kernel (``csrc/flash_fwd_wide.cu``) → (o,
-    lse): bf16/fp16, head dim a multiple of 16 in 144-256, scale > 0;
+    lse): bf16/fp16, head dim a multiple of 8 in 129-256, scale > 0;
     counts its launches in ``flash_forward_wide_cuda.launches``."""
     _check_kernel_inputs(q, k, v, "hopper_wide")
     if not scale > 0:
@@ -387,8 +396,8 @@ def flash_forward_wide_cuda(q, k, v, causal: bool, scale: float):
 
 def flash_bwd_dq_wide_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
     """Launch the wide dQ kernel (``csrc/flash_bwd_wide.cu``) → (dq, delta),
-    as ``flash_bwd_dq_cuda``: bf16/fp16, head dim a multiple of 16 in
-    144-256; counts its launches in ``flash_bwd_dq_wide_cuda.launches``."""
+    as ``flash_bwd_dq_cuda``: bf16/fp16, head dim a multiple of 8 in
+    129-256; counts its launches in ``flash_bwd_dq_wide_cuda.launches``."""
     _check_bwd_inputs(q, k, v, {"o": o, "do": do}, {"lse": lse}, "hopper_wide")
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
@@ -429,6 +438,41 @@ for _wrapper in (flash_bwd_dq_cuda, flash_bwd_dkv_cuda, flash_general_forward_cu
     _wrapper.launches = 0
 
 
+def tma_head_dim(hd: int) -> int:
+    """The head dim the TMA kernels run ``hd`` at: ``hd`` rounded up to a
+    multiple of ``TMA_HEAD_DIM_GRAIN``."""
+    return -(-hd // TMA_HEAD_DIM_GRAIN) * TMA_HEAD_DIM_GRAIN
+
+
+def stage_head_dim(fn, q, k, v, *rest, causal: bool, scale: float):
+    """``fn`` at ``tma_head_dim`` of q's head dim, for the TMA kernels,
+    whose tensor maps take only rows of a multiple of 16 bytes. ``fn`` is
+    a forward, ``(q, k, v, causal, scale) → (o, lse)``, or a backward,
+    ``(q, k, v, o, lse, do, causal, scale) → (dq, dk, dv)`` (``rest`` is
+    then ``(o, lse, do)``). q, k, v, o and do are zero-padded; o, dq, dk
+    and dv come back at the caller's head dim. lse is ``fn``'s own, and so
+    is the backward's Δ = rowsum(dO∘O): zero columns add nothing to Q·Kᵀ,
+    dO·Vᵀ or dO∘O. The caller's ``scale`` is passed through. Pure: the
+    copies are data movement, and ``fn`` still raises on what it cannot
+    take."""
+    hd = q.shape[-1]
+    width = tma_head_dim(hd)
+
+    def pad(t):
+        return torch.nn.functional.pad(t, (0, width - hd))
+
+    if rest:
+        o, lse, do = rest
+        return tuple(t[..., :hd].contiguous()
+                     for t in fn(pad(q), pad(k), pad(v), pad(o), lse, pad(do), causal, scale))
+    o, lse = fn(pad(q), pad(k), pad(v), causal, scale)
+    return o[..., :hd].contiguous(), lse
+
+
+# Calls of the ops on the card that went through stage_head_dim.
+stage_head_dim.uses = 0
+
+
 # ---------------------------------------------------------------------------
 # The custom ops: opaque to the dispatcher, so that a selective checkpoint
 # policy (models/transformer.py) can save their outputs and skip a launch.
@@ -457,8 +501,19 @@ _BACKWARD_BY_ROUTE = {"hopper": flash_backward_cuda, "hopper_wide": flash_backwa
                       "general": flash_general_backward_cuda}
 
 
+def _staged(q, k, scale) -> bool:
+    """Whether the op runs through ``stage_head_dim``: a TMA route at a
+    head dim off its tensor maps' grain."""
+    hd = q.shape[-1]
+    return _kernel_route(q, k, scale) in _TMA_ROUTES and tma_head_dim(hd) != hd
+
+
 def _flash_fwd_cuda(q, k, v, causal, scale):
-    return _FORWARD_BY_ROUTE[_kernel_route(q, k, scale)](q, k, v, causal, scale)
+    fwd = _FORWARD_BY_ROUTE[_kernel_route(q, k, scale)]
+    if _staged(q, k, scale):
+        stage_head_dim.uses += 1
+        return stage_head_dim(fwd, q, k, v, causal=causal, scale=scale)
+    return fwd(q, k, v, causal, scale)
 
 
 def _flash_fwd_fake(q, k, v, causal, scale):
@@ -472,7 +527,11 @@ def _flash_bwd_cpu(q, k, v, o, lse, do, causal, scale):
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale):
-    return _BACKWARD_BY_ROUTE[_kernel_route(q, k, scale)](q, k, v, o, lse, do, causal, scale)
+    bwd = _BACKWARD_BY_ROUTE[_kernel_route(q, k, scale)]
+    if _staged(q, k, scale):
+        stage_head_dim.uses += 1
+        return stage_head_dim(bwd, q, k, v, o, lse, do, causal=causal, scale=scale)
+    return bwd(q, k, v, o, lse, do, causal, scale)
 
 
 def _flash_bwd_fake(q, k, v, o, lse, do, causal, scale):
@@ -516,7 +575,9 @@ def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None)
     ``flash_bwd_dq_cuda.launches`` and ``flash_bwd_dkv_cuda.launches``,
     wide ones in ``flash_forward_wide_cuda.launches``,
     ``flash_bwd_dq_wide_cuda.launches`` and
-    ``flash_bwd_dkv_wide_cuda.launches``, general ones in ``flash_general_{forward,dq,dkv}_cuda.launches``. CPU
+    ``flash_bwd_dkv_wide_cuda.launches``, general ones in
+    ``flash_general_{forward,dq,dkv}_cuda.launches``; calls through the
+    zero-padded copy of ``stage_head_dim`` in ``stage_head_dim.uses``. CPU
     tensors run the plain versions."""
     s = scale if scale is not None else q.shape[-1] ** -0.5
     return flash_fwd(q, k, v, bool(causal), float(s))[0]

@@ -20,7 +20,9 @@
 //
 // Layout at the boundary: q, o, do, dq [b*H, q_len, hd]; k, v [b*KV, k_len,
 // hd]; lse, delta fp32 [b*H, q_len]; all contiguous, bf16 or fp16, hd a
-// multiple of 16 up to 128.
+// multiple of 8 up to 128 (D = 32, 64 or 128 is hd rounded up; the columns
+// past hd are zero-filled by TMA, add nothing to delta and are never
+// stored).
 //
 // What bounds it on an H100. At the training shape ([12, 18, 2048, 128],
 // causal) it does 6 * hd FLOPs per kept (q, k) pair (S, dP, dQ): 0.3519 ms
@@ -503,7 +505,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                             int heads, int kv_heads, int q_len, int k_len, int head_dim,
                             float scale, int causal, int is_bf16, void* stream) {
   if (batch <= 0 || heads <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || q_len <= 0 ||
-      k_len <= 0 || head_dim <= 0 || head_dim % 16 != 0 || head_dim > 128)
+      k_len <= 0 || head_dim <= 0 || head_dim % 8 != 0 || head_dim > 128)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(is_bf16 ? dispatch<true>(q, k, v, o, dout, lse, dq, delta, batch, heads, kv_heads,

@@ -16,7 +16,9 @@
 //
 // Layout at the boundary: q, do [b*H, q_len, hd]; k, v, dk, dv
 // [b*KV, k_len, hd]; lse, delta fp32 [b*H, q_len]; all contiguous, bf16 or
-// fp16, hd a multiple of 16 up to 128.
+// fp16, hd a multiple of 8 up to 128 (D = 32, 64 or 128 is hd rounded up;
+// the columns past hd are zero-filled by TMA and never stored: the column
+// pairs the stores write end at an even hd).
 //
 // What bounds it on an H100. At the training shape ([12, 18, 2048, 128],
 // causal) it does 8 * hd FLOPs per kept (q, k) pair (S, dP, dV, dK):
@@ -392,7 +394,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              int heads, int kv_heads, int q_len, int k_len, int head_dim,
                              float scale, int causal, int is_bf16, void* stream) {
   if (batch <= 0 || heads <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || q_len <= 0 ||
-      k_len <= 0 || head_dim <= 0 || head_dim % 16 != 0 || head_dim > 128)
+      k_len <= 0 || head_dim <= 0 || head_dim % 8 != 0 || head_dim > 128)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(is_bf16 ? dispatch<true>(q, k, v, dout, lse, delta, dk, dv, batch, heads, kv_heads,

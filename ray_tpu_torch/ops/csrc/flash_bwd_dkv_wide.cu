@@ -1,5 +1,5 @@
 // Flash-attention backward, dK and dV, for Hopper (sm_90a) at wide heads
-// (head dims that are multiples of 16 in 144-256), bound through a plain C
+// (head dims that are multiples of 8 in 129-256), bound through a plain C
 // entry point (loaded with ctypes by
 // ray_tpu_torch/ops/attention.py:flash_bwd_dkv_wide_cuda).
 //
@@ -17,8 +17,8 @@
 //
 // Layout at the boundary: q, do [b*H, q_len, hd]; k, v, dk, dv
 // [b*KV, k_len, hd]; lse, delta fp32 [b*H, q_len]; all contiguous, bf16 or
-// fp16, hd a multiple of 16 in 144-256 (D = 192 holds 144-192, D = 256
-// holds 208-256; columns past hd are zero-filled by TMA and never stored).
+// fp16, hd a multiple of 8 in 129-256 (D = 192 holds 136-192, D = 256
+// holds 200-256; columns past hd are zero-filled by TMA and never stored).
 //
 // What bounds it on an H100. At Gemma-7B's head shape ([1, 16, 2048, 256],
 // causal) it does 8 * hd FLOPs per kept (q, k) pair (S, dP, dV, dK):
@@ -410,7 +410,7 @@ extern "C" int flash_bwd_dkv_wide(const void* q, const void* k, const void* v, c
                                   int head_dim, float scale, int causal, int is_bf16,
                                   void* stream) {
   if (batch <= 0 || heads <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || q_len <= 0 ||
-      k_len <= 0 || head_dim % 16 != 0 || head_dim < 144 || head_dim > 256)
+      k_len <= 0 || head_dim % 8 != 0 || head_dim < 129 || head_dim > 256)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(is_bf16 ? dispatch<true>(q, k, v, dout, lse, delta, dk, dv, batch, heads, kv_heads,

@@ -13,8 +13,9 @@
 // the P V product (the row sum l stays fp32).
 //
 // Layout at the boundary: q, o [b*H, q_len, hd]; k, v [b*KV, k_len, hd];
-// lse [b*H, q_len]; all contiguous, bf16 or fp16, hd a multiple of 16 up
-// to 128.
+// lse [b*H, q_len]; all contiguous, bf16 or fp16, hd a multiple of 8 up to
+// 128 (TMA rows are multiples of 16 bytes; D = 32, 64 or 128 is hd rounded
+// up, the columns past hd zero-filled by TMA and never stored).
 //
 // What bounds it on an H100. At the training shape ([12, 18, 2048, 128],
 // causal) it does 4 * hd FLOPs per kept (q, k) pair: 0.2346 ms at
@@ -464,7 +465,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
                          int head_dim, float scale, int causal, int is_bf16,
                          void* stream) {
   if (batch <= 0 || heads <= 0 || kv_heads <= 0 || heads % kv_heads != 0 ||
-      q_len <= 0 || k_len <= 0 || head_dim <= 0 || head_dim % 16 != 0 ||
+      q_len <= 0 || k_len <= 0 || head_dim <= 0 || head_dim % 8 != 0 ||
       head_dim > 128 || !(scale > 0.f))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

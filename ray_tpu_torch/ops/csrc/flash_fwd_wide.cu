@@ -1,5 +1,5 @@
 // Flash-attention forward for Hopper (sm_90a) at wide heads (head dims that
-// are multiples of 16 in 144-256), bound through a plain C entry point
+// are multiples of 8 in 129-256), bound through a plain C entry point
 // (loaded with ctypes by ray_tpu_torch/ops/attention.py:flash_forward_wide_cuda).
 //
 // Replaces: ray_tpu/ops/attention.py:_flash_fwd_kernel (the Pallas TPU
@@ -14,8 +14,8 @@
 // probabilities rounded to the input dtype for the P V product.
 //
 // Layout at the boundary: q, o [b*H, q_len, hd]; k, v [b*KV, k_len, hd];
-// lse [b*H, q_len]; all contiguous, bf16 or fp16, hd a multiple of 16 in
-// 144-256 (D = 192 holds 144-192, D = 256 holds 208-256; the columns past
+// lse [b*H, q_len]; all contiguous, bf16 or fp16, hd a multiple of 8 in
+// 129-256 (D = 192 holds 136-192, D = 256 holds 200-256; the columns past
 // hd are zero-filled by TMA and never stored).
 //
 // What bounds it on an H100. At Gemma-7B's head shape ([1, 16, 2048, 256],
@@ -464,7 +464,7 @@ extern "C" int flash_fwd_wide(const void* q, const void* k, const void* v, void*
                               int head_dim, float scale, int causal, int is_bf16,
                               void* stream) {
   if (batch <= 0 || heads <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || q_len <= 0 ||
-      k_len <= 0 || head_dim % 16 != 0 || head_dim < 144 || head_dim > 256 || !(scale > 0.f))
+      k_len <= 0 || head_dim % 8 != 0 || head_dim < 129 || head_dim > 256 || !(scale > 0.f))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(is_bf16 ? dispatch<true>(q, k, v, o, lse, batch, heads, kv_heads, q_len, k_len,

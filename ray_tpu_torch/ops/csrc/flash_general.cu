@@ -2,11 +2,12 @@
 // through plain C entry points (loaded with ctypes by
 // ray_tpu_torch/ops/attention.py). Of the three routes
 // (attention.py:_kernel_route), "hopper" (flash_fwd.cu, flash_bwd.cu,
-// flash_bwd_dkv.cu) takes bf16/fp16 at head dims that are multiples of 16
-// up to 128 and "hopper_wide" (flash_fwd_wide.cu, flash_bwd_wide.cu,
-// flash_bwd_dkv_wide.cu) those in 144-256, both with scale > 0; this
-// "general" route takes the rest up to head dim 256: fp32 inputs, head dims
-// off the 16 grid, and scale <= 0, in fp32, bf16 or fp16.
+// flash_bwd_dkv.cu) takes bf16/fp16 at head dims up to 128 and
+// "hopper_wide" (flash_fwd_wide.cu, flash_bwd_wide.cu,
+// flash_bwd_dkv_wide.cu) those in 129-256, both with scale > 0 (head dims
+// off the 8 grid through a zero-padded copy); this "general" route takes
+// the rest up to head dim 256: fp32 inputs and scale <= 0. Its kernels take
+// bf16 and fp16 too, and any head dim from 1 to 256.
 //
 // Replaces the same three Pallas TPU kernels as flash_fwd.cu, flash_bwd.cu
 // and flash_bwd_dkv.cu, for every shape and type they take and those do not
@@ -47,9 +48,8 @@
 // What bounds it on an H100: fp32 FMAs at 67 TFLOP/s, and in practice the
 // shared-memory loads that feed them (one float4 of the tile row and one
 // broadcast float4 a block row for every 4 FMAs a row), and the tile loads,
-// which nothing overlaps with the FMAs. Tensor-core kernels for head dims
-// off the 16 grid and an fp32-input route through TF32 or bf16x3 wgmma are
-// later work (ROADMAP).
+// which nothing overlaps with the FMAs. An fp32-input route through TF32
+// or bf16x3 wgmma is later work (ROADMAP).
 #include "flash_common.cuh"
 
 #include <math.h>

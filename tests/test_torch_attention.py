@@ -10,8 +10,11 @@ is fp32 summation-order noise on O(1) values: 2e-5.
 The plain backward is held to the Pallas backward kernels in the same
 way (``_flash_backward(..., interpret=True)``, dq, dk and dv), on the
 same o and lse, at the same shapes: fp32 sums over up to 320 keys or
-queries of O(1) terms, so 1e-4. (The shapes only the general kernels
-take are in ``tests/test_torch_attention_general.py``.)
+queries of O(1) terms, so 1e-4. The shapes include head dims off the 16
+grid (40, 136) and off the 8 grid (100), which the card's ops take through
+``stage_head_dim``, held here to the plain versions unpadded. (fp32
+shapes, which the general kernels take, are in
+``tests/test_torch_attention_general.py``.)
 ``flash_attention`` (the custom op ``ray_tpu_torch::flash_fwd`` with its
 autograd) is checked with ``torch.autograd.gradcheck`` in float64.
 
@@ -72,6 +75,12 @@ SHAPES = [
     # narrowest wide head dim.
     ("causal_130_hd256", (1, 2, 130, 256), (1, 2, 130, 256), True, 64, 64),
     ("gqa_noncausal_ragged_72x136_hd144", (1, 4, 72, 144), (1, 2, 136, 144), False, 64, 64),
+    # Head dims off the 16 grid on the TMA kernels: 40 (one 64-column box,
+    # mostly zero-filled), 136 (the wide route's D = 192) and 100 (off the
+    # 8 grid: staged to 104 on the card).
+    ("gqa_4to2_noncausal_ragged_96x160_hd40", (1, 4, 96, 40), (1, 2, 160, 40), False, 64, 64),
+    ("cross_length_causal_160x96_hd136", (1, 2, 160, 136), (1, 2, 96, 136), True, 64, 64),
+    ("gqa_2to1_causal_130_hd100", (1, 4, 130, 100), (1, 2, 130, 100), True, 64, 64),
 ]
 
 
@@ -254,12 +263,17 @@ ROUTES = [
     ("bf16_hd256_gqa", torch.bfloat16, (2, 8, 1024, 256), (2, 2, 1024, 256), 0.0625,
      "hopper_wide"),
     ("fp16_hd192", torch.float16, (1, 4, 300, 192), (1, 2, 500, 192), 0.072, "hopper_wide"),
-    # Off the 16 grid: the general kernels.
-    ("bf16_hd200", torch.bfloat16, (1, 2, 8, 200), (1, 2, 8, 200), 0.07, "general"),
-    ("fp16_hd72", torch.float16, (1, 4, 300, 72), (1, 2, 500, 72), 0.118, "general"),
-    ("bf16_hd24", torch.bfloat16, (1, 2, 8, 24), (1, 2, 8, 24), 0.2, "general"),
+    # Off the 16 grid: the Hopper and wide kernels (off the 8 grid through
+    # stage_head_dim's zero-padded copy).
+    ("bf16_hd200", torch.bfloat16, (1, 2, 8, 200), (1, 2, 8, 200), 0.07, "hopper_wide"),
+    ("fp16_hd72", torch.float16, (1, 4, 300, 72), (1, 2, 500, 72), 0.118, "hopper"),
+    ("bf16_hd24", torch.bfloat16, (1, 2, 8, 24), (1, 2, 8, 24), 0.2, "hopper"),
+    ("bf16_hd100_staged", torch.bfloat16, (2, 8, 1024, 100), (2, 2, 1024, 100), 0.1, "hopper"),
+    ("bf16_hd129", torch.bfloat16, (1, 2, 8, 129), (1, 2, 8, 129), 0.088, "hopper_wide"),
     ("bf16_hd144", torch.bfloat16, (1, 2, 8, 144), (1, 2, 8, 144), 0.08, "hopper_wide"),
+    # fp32 and scale <= 0: the general kernels.
     ("bf16_negative_scale", torch.bfloat16, (1, 2, 8, 64), (1, 2, 8, 64), -0.125, "general"),
+    ("fp16_zero_scale_hd72", torch.float16, (1, 2, 8, 72), (1, 2, 8, 72), 0.0, "general"),
     ("fp32_hd1", torch.float32, (1, 2, 8, 1), (1, 2, 8, 1), 1.0, "general"),
 ]
 
@@ -269,6 +283,19 @@ def test_kernel_route(name, dtype, qs, ks, scale, route):
     """The route is a pure function of shape, dtype and scale: it reads no
     data and needs no card."""
     assert tatt._kernel_route(_empty(qs, dtype), _empty(ks, dtype), scale) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_kernel_route_takes_every_16bit_head_dim_to_the_tma_kernels(dtype):
+    """Every bf16/fp16 head dim from 1 to 256 with scale > 0 reaches the
+    TMA kernels: 1-128 the Hopper route, 129-256 the wide route; those off
+    the 8 grid through stage_head_dim, and no other."""
+    for hd in range(1, 257):
+        x = _empty((1, 2, 8, hd), dtype)
+        assert tatt._kernel_route(x, x, hd**-0.5) == ("hopper" if hd <= 128 else "hopper_wide")
+        assert tatt._staged(x, x, hd**-0.5) == (hd % 8 != 0)
+    f = _empty((1, 2, 8, 100), torch.float32)
+    assert not tatt._staged(f, f, 0.1) and tatt._kernel_route(f, f, 0.1) == "general"
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -281,6 +308,48 @@ def test_kernel_route_raises_above_head_dim_256(dtype):
         tatt._kernel_route(q, q, 0.0625)
     assert tatt._kernel_route(_empty((1, 2, 8, 256), dtype), _empty((1, 2, 8, 256), dtype),
                               0.0625) == ("hopper_wide" if dtype == torch.bfloat16 else "general")
+
+
+# (id, q shape, kv shape, causal): head dims off the 8 grid, the staged
+# width on each route (hd 1 to 8, 100 to 104, 129 to 136, 255 to 256).
+STAGED = [
+    ("hd100_gqa_causal", (1, 4, 40, 100), (1, 2, 40, 100), True),
+    ("hd1_noncausal_ragged", (1, 2, 9, 1), (1, 2, 13, 1), False),
+    ("hd129_cross_length", (1, 2, 24, 129), (1, 2, 11, 129), True),
+    ("hd255_causal", (1, 2, 16, 255), (1, 2, 16, 255), True),
+]
+
+
+@pytest.mark.parametrize("name,qs,ks,causal", STAGED, ids=[s[0] for s in STAGED])
+def test_stage_head_dim_with_the_plain_versions_equals_them_unpadded(name, qs, ks, causal):
+    """The zero-padded copy the card's ops make for head dims off the 8 grid,
+    around the plain versions at the padded width and sliced back, gives
+    the plain versions at the true width: o, lse, dq, dk and dv, in fp32
+    (sums in another order, so the files' TOL and BWD_TOL)."""
+    q, k, v = (torch.tensor(a) for a in _inputs(qs, ks, seed=15))
+    do = torch.tensor(np.random.default_rng(16).standard_normal(qs).astype(np.float32))
+    scale = qs[-1] ** -0.5
+    widths = []
+
+    def fwd(*args):
+        widths.append(args[0].shape[-1])
+        return tatt.flash_attention_plain(*args)
+
+    def bwd(*args):
+        widths.append(args[0].shape[-1])
+        return tatt.flash_attention_bwd_plain(*args)
+
+    o_ref, lse_ref = tatt.flash_attention_plain(q, k, v, causal, scale)
+    o, lse = tatt.stage_head_dim(fwd, q, k, v, causal=causal, scale=scale)
+    assert o.shape == o_ref.shape and o.is_contiguous()
+    torch.testing.assert_close(o, o_ref, rtol=0, atol=TOL)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=TOL)
+    ref = tatt.flash_attention_bwd_plain(q, k, v, o_ref, lse_ref, do, causal, scale)
+    got = tatt.stage_head_dim(bwd, q, k, v, o_ref, lse_ref, do, causal=causal, scale=scale)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.is_contiguous()
+        torch.testing.assert_close(g, r, rtol=0, atol=BWD_TOL)
+    assert widths == [-(-qs[-1] // 8) * 8] * 2
 
 
 @pytest.fixture

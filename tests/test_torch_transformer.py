@@ -197,7 +197,7 @@ def _flat(tree, prefix=""):
 @pytest.mark.parametrize(
     "case",
     ["plain", "remat", "chunked", "remat_chunked_masked", "masked", "moe", "moe_remat_chunked",
-     "dots", "attn", "moe_dots", "moe_attn_chunked", "wide_head"],
+     "dots", "attn", "moe_dots", "moe_attn_chunked", "wide_head", "off_grid_head"],
 )
 def test_loss_and_grads_match_jax(case):
     """``loss_fn`` and every parameter's gradient against
@@ -205,13 +205,17 @@ def test_loss_and_grads_match_jax(case):
     converted weights, at the tiny config (GQA 4 q / 2 kv heads); the
     "dots" and "attn" cases run both sides under that remat policy;
     "wide_head" at d_model 512 with 2 q heads and 1 kv head of 256 (the head
-    dims the wide kernels take on the card)."""
+    dims the wide kernels take on the card); "off_grid_head" at d_model 144
+    with 2 q and 2 kv heads of 72 in 2 layers (off the 16 grid, as the
+    750M flagship's 32 heads of 72, which the Hopper kernels take)."""
     policy = next((p for p in ("dots", "attn") if p in case), "full")
     kw = dict(remat="remat" in case or policy != "full", remat_policy=policy,
               logits_chunk=16 if "chunked" in case else 0,
               num_experts=4 if "moe" in case else 0)
     if case == "wide_head":
         kw.update(d_model=512, n_heads=2, n_kv_heads=1)
+    if case == "off_grid_head":
+        kw.update(d_model=144, n_heads=2, n_kv_heads=2, n_layers=2)
     jcfg = jtf.TransformerConfig.tiny(dtype=jnp.float32, **kw)
     tcfg = ttf.TransformerConfig.tiny(dtype=torch.float32, **kw)
     jp = jtf.init_params(jax.random.PRNGKey(3), jcfg)
