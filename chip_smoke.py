@@ -20,8 +20,9 @@ Phases, in order; any failure raises and the process exits non-zero:
      memory and spills, and each library's count of wgmma (``HGMMA``),
      TMA-load (``UTMALDG``) and ``mma.sync`` (``HMMA``) instructions: every
      Hopper kernel (``HOPPER_KERNELS``, the wide ones included) must have
-     the first two and none of the third (``flash_general`` is SIMT: its
-     counts are printed only);
+     the first two and none of the third (the fp32 route's
+     ``flash_fwd_fp32`` and ``flash_bwd_dkv_fp32`` among them;
+     ``flash_general`` is SIMT: its counts are printed only);
   3. kernel phase: each Hopper kernel's wrapper on the card against its
      plain PyTorch version at the shapes the main paths give it (and the
      CPU test shapes, and the edges of the kernels' tiles), with times, the
@@ -31,9 +32,11 @@ Phases, in order; any failure raises and the process exits non-zero:
      dO, a bf16 lse) raise;
   4. general-kernel phase: the three kernels of ``csrc/flash_general.cu``
      against their plain versions at ``GENERAL_SHAPES``, with times,
-     bounds, plain and SDPA times: the general route's own inputs (fp32
-     GQA, fp16 head dim 72 at scale < 0) and, as the "earlier" times of
-     the TMA kernels, the bf16/fp16 shapes the Hopper and wide routes take
+     bounds, plain and SDPA times: the general route's own inputs (fp16
+     head dim 72 at scale < 0) and, as the "earlier" times of the TMA
+     kernels, the fp32 shapes the fp32 route takes (fp32 GQA [2, 8/2,
+     1024, 64], the fp32 model's [4, 8/4, 512, 64], [1, 16/16, 2048, 128],
+     all causal) and the bf16/fp16 shapes the Hopper and wide routes take
      (head dim 256 causal, a GQA at 256, 144 ragged cross-length, the
      wide-head flagship's [12, 9, 2048, 256]; off the 16 grid: fp16 72
      cross-length, SigLIP's [32, 16, 729, 72], DiT's [8, 16, 1024, 72]
@@ -48,8 +51,14 @@ Phases, in order; any failure raises and the process exits non-zero:
      ``DELTA_REL_TOL``), timed beside the general kernels, dQ and dK/dV
      each run twice bitwise equal; a head dim off the 8 grid on zero-padded
      copies, the ops' staged outputs bit-equal to them, each op counting one
-     ``stage_head_dim`` use; then the TMA kernels at ``WIDE_EDGE_SHAPES``
-     and ``OFF_GRID_EDGE_SHAPES`` (the edges of their tiles and widths);
+     ``stage_head_dim`` use; at each fp32 shape the fp32 route's forward
+     and dK/dV (``csrc/flash_fwd_fp32.cu``, ``flash_bwd_dkv_fp32.cu``, after
+     the general dQ) against the plain versions (o and lse within 2e-4, dK
+     and dV within ``FP32_DKV_REL_TOL`` of the largest value, dK/dV run
+     twice bitwise equal), timed beside the general kernels and SDPA with
+     TF32 off, bound at the split's rate; then the TMA kernels at
+     ``WIDE_EDGE_SHAPES``, ``OFF_GRID_EDGE_SHAPES`` and
+     ``FP32_EDGE_SHAPES`` (the edges of their tiles and widths);
   5. training phase: ``make_train_step`` on the 750M flagship config of
      ``bench.py`` (full width, full depth, remat, batch 12 x 2048, random
      weights and tokens from seeds) under each remat policy ("full",
@@ -58,9 +67,11 @@ Phases, in order; any failure raises and the process exits non-zero:
      "dots" (forward + recompute) and 10 under "attn", each backward
      kernel 10 times and no general kernel; the loss falls, and each
      policy's losses match "full"'s;
-  6. fp32 training: a 2-layer fp32 model trains a few steps through the
-     general kernels (and no Hopper kernel), and its loss and gradients
-     match the same model through plain attention;
+  6. fp32 training: a 2-layer fp32 model (heads of 64) trains a few steps
+     through the fp32 route (its forward and dK/dV kernels and the general
+     dQ, no other kernel), and the same model with heads of 256 through
+     the general kernels; each one's loss and gradients match the same
+     model through plain attention;
   7. full-width gradient check: loss and every gradient of the 750M model
      through the kernels against the same model through plain attention;
      then the wide-head flagship (``wide_training_phase``): the 750M
@@ -271,6 +282,7 @@ card the script fails before printing any result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import json
 import math
@@ -341,9 +353,10 @@ EDGE_SHAPES = [
     ("noncausal 65x65 hd128", 1, 2, 2, 65, 65, 128, False, torch.bfloat16, False),
 ]
 # Every kernel is built around TMA and wgmma: its SASS must hold both, and
-# no mma.sync.
+# no mma.sync (the fp32 route's too: wgmma, not mma.sync, is the way to the
+# tensor cores' full rate on Hopper, and its split needs that rate).
 HOPPER_KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_dkv", "flash_fwd_wide",
-                  "flash_bwd_wide", "flash_bwd_dkv_wide")
+                  "flash_bwd_wide", "flash_bwd_dkv_wide", "flash_fwd_fp32", "flash_bwd_dkv_fp32")
 # The dQ kernels' delta against rowsum(dO * O) in torch: fp32 sums of hd
 # products in another order, relative to the largest |delta|.
 DELTA_REL_TOL = 1e-4
@@ -401,11 +414,20 @@ def sass_counts(path: str) -> dict:
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "HMMA")}
 
 
-def peaks(name: str, fp32: bool = False):
-    """(FLOP/s, bytes/s): the tensor-core bf16/fp16 rate, or with ``fp32``
-    the fp32 FMA rate."""
+# The fp32 route's kernels compute each fp32 product as six bf16 tensor-core
+# products of a three-way split (ray_tpu_torch/ops/csrc/flash_fp32.cuh).
+FP32_SPLIT_PRODUCTS = 6
+
+
+def peaks(name: str, fp32: bool = False, split: bool = False):
+    """(FLOP/s, bytes/s): the tensor-core bf16/fp16 rate, with ``fp32`` the
+    fp32 FMA rate, with ``split`` the rate of fp32 products through the
+    fp32 route's split (the bf16 rate over ``FP32_SPLIT_PRODUCTS``:
+    ~165 TFLOP/s on an H100 SXM)."""
     for key, flops, bw, flops32 in _PEAKS:
         if key in name:
+            if split:
+                return flops / FP32_SPLIT_PRODUCTS, bw
             return (flops32 if fp32 else flops), bw
     raise RuntimeError(f"no published peaks for card {name!r}")
 
@@ -439,13 +461,15 @@ _ATTN_WORK = {
 }
 
 
-def attention_bound_ms(b, H, KV, q_len, k_len, hd, causal, elem_bytes, card, kind="fwd"):
+def attention_bound_ms(b, H, KV, q_len, k_len, hd, causal, elem_bytes, card, kind="fwd",
+                       split: bool = False):
     """Least time for the work: max(bytes / memory rate, FLOPs / peak), the
     peak of the inputs' type (fp32 FMAs for 4-byte elements, the tensor
-    cores for bf16/fp16). FLOPs: the kernel's products, 2*hd each, per
-    (query, key) pair this causal mask keeps; bytes: each input and output
-    once (``_ATTN_WORK``)."""
-    flops_peak, bw = peaks(card, fp32=elem_bytes == 4)
+    cores for bf16/fp16; with ``split``, fp32 through the fp32 route's
+    split, ``peaks(split=True)``). FLOPs: the kernel's products, 2*hd each,
+    per (query, key) pair this causal mask keeps; bytes: each input and
+    output once (``_ATTN_WORK``)."""
+    flops_peak, bw = peaks(card, fp32=elem_bytes == 4, split=split)
     per_pair, n_q, n_kv, n_rows = _ATTN_WORK[kind]
     if causal:
         pairs = sum(min(i + 1, k_len) for i in range(q_len))
@@ -718,7 +742,17 @@ def bwd_kernel_phase(card: str) -> dict:
 GENERAL_O_TOL_FP32 = 2e-4
 GENERAL_O_TOL_16 = 1e-2
 GENERAL_LSE_TOL = 2e-4
+# The fp32 route's dK and dV against the plain backward in fp32, relative to
+# the largest value. Its products are fp32-accurate splits (each term's
+# error below 2^-24 of the product) summed in the tensor cores' fp32
+# accumulators, a few hundred adds a sum: an fp32 emulation of the split on
+# the CPU reads <= 1e-6 (tests/test_torch_attention_fp32.py), the card
+# 1e-5 to 2e-5 at head dim 128 and 2048 keys. One TF32 or bf16 rounding of
+# the operands reads 3e-3 to 1e-2 there, so 1e-4 tells the two apart (the
+# 16-bit routes' 2% would not).
+FP32_DKV_REL_TOL = 1e-4
 GENERAL_FP32_LABEL = "fp32 gqa [2, 8/2, 1024, 64] causal"
+FP32_MODEL_LABEL = "fp32 model [4, 8/4, 512, 64] causal"
 GENERAL_HEAD_LABEL = "bf16 [1, 16/16, 2048, 256] causal"
 WIDE_TRAIN_LABEL = "wide train [12, 9, 2048, 256] causal"
 # (label, b, H, KV, q_len, k_len, hd, causal, dtype, route). The general
@@ -736,7 +770,10 @@ WIDE_TRAIN_LABEL = "wide train [12, 9, 2048, 256] causal"
 # dims 64 and 128 beside 72 gives the padding's cost. At b*H = 65,600 the
 # Hopper grid is one-dimensional.
 GENERAL_SHAPES = [
-    (GENERAL_FP32_LABEL, 2, 8, 2, 1024, 1024, 64, True, torch.float32, "general"),
+    (GENERAL_FP32_LABEL, 2, 8, 2, 1024, 1024, 64, True, torch.float32, "hopper_fp32"),
+    (FP32_MODEL_LABEL, 4, 8, 4, 512, 512, 64, True, torch.float32, "hopper_fp32"),
+    ("fp32 [1, 16/16, 2048, 128] causal", 1, 16, 16, 2048, 2048, 128, True, torch.float32,
+     "hopper_fp32"),
     ("fp16 [1, 4/2, 300, 72] x k_len 500 noncausal scale < 0", 1, 4, 2, 300, 500, 72, False,
      torch.float16, "general"),
     (GENERAL_HEAD_LABEL, 1, 16, 16, 2048, 2048, 256, True, torch.bfloat16, "hopper_wide"),
@@ -802,6 +839,17 @@ OFF_GRID_EDGE_SHAPES = [
      torch.float16, "hopper_wide"),
     ("staged noncausal 70x33 hd7", 1, 2, 1, 70, 33, 7, False, torch.bfloat16, "hopper"),
 ]
+# The edges of the fp32 route's tiles (the forward's 128-row q tiles and
+# 64-key tiles, 32 at D = 128; the dK/dV kernel's 128-key blocks of
+# 64-query steps, 64 keys of 32-query steps at D = 128) and widths (D = 32
+# holds head dims 4-32): (label, b, H, KV, q_len, k_len, hd, causal).
+FP32_EDGE_SHAPES = [
+    ("fp32 gqa 4:1 noncausal ragged 193x77 hd128", 1, 4, 1, 193, 77, 128, False),
+    ("fp32 causal 65 hd4", 1, 2, 2, 65, 65, 4, True),
+    # Keys past every query (causal, k_len > q_len) get exactly zero.
+    ("fp32 cross-length causal 64x200 hd64", 1, 2, 2, 64, 200, 64, True),
+    ("fp32 gqa 2:1 causal 257 hd100", 1, 4, 2, 257, 257, 100, True),
+]
 # The plain versions are timed where one fp32 score tensor takes at most this
 # many bytes (the backward holds several); their reference values are
 # computed a few batch rows at a time.
@@ -841,10 +889,13 @@ def general_kernel_phase(card: str) -> dict:
     """The general forward, dQ and dK/dV kernels against
     ``flash_attention_plain`` / ``flash_attention_bwd_plain`` at
     ``GENERAL_SHAPES``, with times, bounds (fp32 FMA peak for fp32 inputs,
-    tensor-core peak for bf16/fp16), plain and SDPA times; the route each
-    shape takes, whose TMA kernels (``_tma_check``) are checked and timed
-    there too; then the TMA kernels at ``WIDE_EDGE_SHAPES`` and
-    ``OFF_GRID_EDGE_SHAPES``."""
+    tensor-core peak for bf16/fp16), plain and SDPA times (SDPA with TF32
+    off); the route each
+    shape takes, whose TMA kernels (``_tma_check``) or fp32 kernels
+    (``_fp32_check``, bound at the split's rate beside the FMA bound) are
+    checked and timed there too; then the TMA kernels at
+    ``WIDE_EDGE_SHAPES`` and ``OFF_GRID_EDGE_SHAPES`` and the fp32 kernels
+    at ``FP32_EDGE_SHAPES``."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import attention as att
@@ -858,7 +909,10 @@ def general_kernel_phase(card: str) -> dict:
     rows = []
     max_abs = {f"{route}_{key}": 0.0 for route in ("general", "hopper", "hopper_wide")
                for key in ("fwd", "dq", "dkv", "delta")}
+    max_abs.update(hopper_fp32_fwd=0.0, hopper_fp32_dkv=0.0)
+    fp32_s = 0.0  # the seconds of the fp32 route's rows, general kernels beside them included
     for label, b, H, KV, ql, kl, hd, causal, dtype, route in GENERAL_SHAPES:
+        t_row = time.perf_counter()
         q, do = rand(b, H, ql, hd, dtype=dtype), rand(b, H, ql, hd, dtype=dtype)
         k, v = rand(b, KV, kl, hd, dtype=dtype), rand(b, KV, kl, hd, dtype=dtype)
         scale = -hd**-0.5 if route == "general" and dtype != torch.float32 else hd**-0.5
@@ -917,6 +971,17 @@ def general_kernel_phase(card: str) -> dict:
             for key in ("fwd", "dq", "dkv", "delta"):
                 max_abs[f"{route}_{key}"] = max(max_abs[f"{route}_{key}"],
                                                 row["tma"][f"{key}_abs_err"])
+        elif route == "hopper_fp32":
+            row["fp32"] = _fp32_check(q, k, v, do, causal, scale, o_ref, lse_ref, timed=True)
+            for kind in ("fwd", "dkv"):
+                row["fp32"][f"{kind}_bound_ms"], row["fp32"][f"{kind}_bound_by"] = (
+                    attention_bound_ms(b, H, KV, ql, kl, hd, causal, 4, card, kind, split=True))
+                row["fp32"][f"{kind}_fma_bound_ms"] = row[f"{kind}_bound_ms"]
+            log(f"[kernel] flash_fp32 {label}: " + json.dumps(row["fp32"]))
+            ok = ok and row["fp32"]["ok"]
+            for key in ("fwd", "dkv"):
+                max_abs[f"hopper_fp32_{key}"] = max(max_abs[f"hopper_fp32_{key}"],
+                                                    row["fp32"][f"{key}_abs_err"])
         log(f"[kernel] flash_general {label} on {card}: " + json.dumps(row))
         if not ok:
             raise AssertionError(f"flash_general or the {route} kernels disagree with their "
@@ -924,6 +989,8 @@ def general_kernel_phase(card: str) -> dict:
         rows.append(row)
         del q, k, v, do, o_ref, lse_ref
         torch.cuda.empty_cache()
+        if route == "hopper_fp32":
+            fp32_s += time.perf_counter() - t_row
     edges = [(*shape, "hopper_wide") for shape in WIDE_EDGE_SHAPES] + OFF_GRID_EDGE_SHAPES
     for label, b, H, KV, ql, kl, hd, causal, dtype, route in edges:
         q, do = rand(b, H, ql, hd, dtype=dtype), rand(b, H, ql, hd, dtype=dtype)
@@ -938,6 +1005,23 @@ def general_kernel_phase(card: str) -> dict:
                                  f"{row}")
         for key in ("fwd", "dq", "dkv", "delta"):
             max_abs[f"{route}_{key}"] = max(max_abs[f"{route}_{key}"], row[f"{key}_abs_err"])
+    t_edges = time.perf_counter()
+    for label, b, H, KV, ql, kl, hd, causal in FP32_EDGE_SHAPES:
+        q, do = rand(b, H, ql, hd, dtype=torch.float32), rand(b, H, ql, hd, dtype=torch.float32)
+        k, v = rand(b, KV, kl, hd, dtype=torch.float32), rand(b, KV, kl, hd, dtype=torch.float32)
+        scale = hd**-0.5
+        o_ref, lse_ref = att.flash_attention_plain(q, k, v, causal, scale)
+        row = {"shape": label, "route": att._kernel_route(q, k, scale),
+               **_fp32_check(q, k, v, do, causal, scale, o_ref, lse_ref, timed=False)}
+        log(f"[kernel] hopper_fp32 edge {label}: " + json.dumps(row))
+        if not (row["ok"] and row["route"] == "hopper_fp32"):
+            raise AssertionError(f"fp32 kernels disagree with their plain versions at {label}: "
+                                 f"{row}")
+        for key in ("fwd", "dkv"):
+            max_abs[f"hopper_fp32_{key}"] = max(max_abs[f"hopper_fp32_{key}"],
+                                                row[f"{key}_abs_err"])
+    log(f"[time] general_kernel_phase's hopper_fp32 rows: {fp32_s:.1f} s, its fp32 edges: "
+        f"{time.perf_counter() - t_edges:.1f} s")
     # Keys past every query get exactly zero; inputs the wide kernels do
     # not take raise (head dims up to 128 are the Hopper kernels', those
     # off the 8 grid are staged by the ops first).
@@ -960,9 +1044,73 @@ def general_kernel_phase(card: str) -> dict:
             log(f"[kernel] TMA kernel rejected {what} as expected: {e}")
         else:
             raise AssertionError(f"a TMA kernel's wrapper accepted {what}")
+    x4, x6, x132 = (rand(1, 2, 8, hd, dtype=torch.float32) for hd in (4, 6, 132))
+    for what, bad in (("fp32 head_dim 6", lambda: att.flash_forward_fp32_cuda(x6, x6, x6, True,
+                                                                               0.4)),
+                      ("fp32 head_dim 132", lambda: att.flash_forward_fp32_cuda(
+                          x132, x132, x132, True, 0.087)),
+                      ("fp32 scale <= 0", lambda: att.flash_forward_fp32_cuda(x4, x4, x4, True,
+                                                                              -0.5))):
+        try:
+            bad()
+        except ValueError as e:
+            log(f"[kernel] fp32 kernel rejected {what} as expected: {e}")
+        else:
+            raise AssertionError(f"the fp32 forward's wrapper accepted {what}")
     head = next(r for r in rows if r["shape"] == GENERAL_HEAD_LABEL)
     general_head = next(r for r in rows if r["shape"] == GENERAL_FP32_LABEL)
     return {"rows": rows, "max_abs": max_abs, "head": head, "general_head": general_head}
+
+
+def _fp32_check(q, k, v, do, causal, scale, o_ref, lse_ref, timed: bool) -> dict:
+    """The fp32 route's forward and dK/dV kernels against the plain versions
+    on the same fp32 inputs (TF32 off): o and lse within 2e-4, dK and dV
+    within ``FP32_DKV_REL_TOL`` of the largest value (Δ from the general dQ
+    kernel, as the route runs it); dK/dV run twice must agree bitwise (no
+    atomics); keys past every query get exactly zero. ``timed`` adds both
+    kernels' times."""
+    from ray_tpu_torch.ops import attention as att
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("fp32 references must run in fp32 (TF32 is on)")
+    o, lse = att.flash_forward_fp32_cuda(q, k, v, causal, scale)
+    _, delta = att.flash_general_dq_cuda(q, k, v, o, lse, do, causal, scale)
+    runs = [att.flash_bwd_dkv_fp32_cuda(q, k, v, do, lse, delta, causal, scale)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    _, dk_ref, dv_ref = _plain_by_batch(att.flash_attention_bwd_plain, q, k, v, o, lse, do,
+                                        causal=causal, scale=scale)
+    _, o_abs, lse_err = _fwd_errors(o, lse, o_ref, lse_ref)
+    row = {"route": "hopper_fp32", "head_dim": q.shape[-1], "fwd_abs_err": o_abs,
+           "o_tol": GENERAL_O_TOL_FP32, "lse_err": lse_err, "lse_tol": GENERAL_LSE_TOL,
+           "dkv_rel_tol": FP32_DKV_REL_TOL,
+           "dkv_plan": att.fp32_dkv_plan(*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                                         q.shape[-1], bool(causal),
+                                         torch.cuda.get_device_properties(q.device)
+                                         .multi_processor_count),
+           "dkv_bitwise_repeatable": all(torch.equal(a, b) for a, b in zip(*runs))}
+    ok = (bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
+          and o_abs <= GENERAL_O_TOL_FP32 and lse_err <= GENERAL_LSE_TOL
+          and row["dkv_bitwise_repeatable"])
+    dkv_abs = 0.0
+    for name, got, want in zip(("dk", "dv"), runs[0], (dk_ref, dv_ref)):
+        err = (got - want).abs().max().item()
+        row[f"{name}_abs_err"] = err
+        row[f"{name}_rel_err"] = err / max(want.abs().max().item(), 1e-30)
+        ok = ok and bool(torch.isfinite(got).all()) and got.shape == want.shape and (
+            row[f"{name}_rel_err"] <= FP32_DKV_REL_TOL)
+        dkv_abs = max(dkv_abs, err)
+    row["dkv_abs_err"] = dkv_abs
+    if causal and k.shape[2] > q.shape[2]:
+        row["zero_past_queries"] = not any(t[:, :, q.shape[2]:].count_nonzero().item()
+                                           for t in runs[0])
+        ok = ok and row["zero_past_queries"]
+    if timed:
+        row["fwd_ms"] = time_ms(lambda: att.flash_forward_fp32_cuda(q, k, v, causal, scale))
+        row["dkv_ms"] = time_ms(lambda: att.flash_bwd_dkv_fp32_cuda(q, k, v, do, lse, delta,
+                                                                    causal, scale))
+    row["ok"] = ok
+    return row
 
 
 # Each TMA route's forward, dQ and dK/dV launch wrappers.
@@ -1076,7 +1224,8 @@ def _counted():
             "dkv": att.flash_bwd_dkv_cuda, "general_fwd": att.flash_general_forward_cuda,
             "general_dq": att.flash_general_dq_cuda, "general_dkv": att.flash_general_dkv_cuda,
             "wide_fwd": att.flash_forward_wide_cuda, "wide_dq": att.flash_bwd_dq_wide_cuda,
-            "wide_dkv": att.flash_bwd_dkv_wide_cuda}
+            "wide_dkv": att.flash_bwd_dkv_wide_cuda, "fp32_fwd": att.flash_forward_fp32_cuda,
+            "fp32_dkv": att.flash_bwd_dkv_fp32_cuda}
 
 
 def launch_counts():
@@ -1097,10 +1246,10 @@ def reset_launch_counts():
 
 
 def no_general(per_step: dict) -> dict:
-    """``per_step`` Hopper launches and no general or wide ones, and no
-    staged copy."""
+    """``per_step`` Hopper launches and no general, wide or fp32 ones, and
+    no staged copy."""
     return {**per_step, "general_fwd": 0, "general_dq": 0, "general_dkv": 0, "wide_fwd": 0,
-            "wide_dq": 0, "wide_dkv": 0, "staged": 0}
+            "wide_dq": 0, "wide_dkv": 0, "fp32_fwd": 0, "fp32_dkv": 0, "staged": 0}
 
 
 def train_launches_per_step(cfg, policy: str) -> dict:
@@ -1330,21 +1479,28 @@ def off_grid_training_phase(card: str, smi: str, profile: bool = False) -> dict:
     return {"train": run, "grad_check": grads}
 
 
-# fp32 model, kernels (general route) vs plain attention: fp32 on both sides
-# (TF32 off), sums in another order through 2 layers; relative errors of
-# ~1e-6 are expected, so 1e-5 on the loss and 1e-3 of each gradient's
-# largest value.
+# fp32 model, kernels (the fp32 route at heads of 64, the general route at
+# 256) vs plain attention: fp32 on both sides (TF32 off), sums in another
+# order through 2 layers; relative errors of ~1e-6 are expected, so 1e-5 on
+# the loss and 1e-3 of each gradient's largest value.
 FP32_LOSS_REL_TOL = 1e-5
 FP32_GRAD_REL_TOL = 1e-3
 
 
+# The fp32 training phase's model: (label, q heads, kv heads); d_model 512
+# gives heads of 64 (the fp32 route) and of 256 (the general route).
+FP32_TRAIN_MODELS = (("fp32 route", 8, 4), ("general route", 2, 2))
+
+
 @timed_phase
 def fp32_training_phase(card: str) -> dict:
-    """A 2-layer fp32 model (d_model 512, 8 q / 4 kv heads, remat "full")
-    trains 3 steps through ``make_train_step``: every step launches each
-    general kernel (forward 2 x 2, dQ 2, dK/dV 2) and no Hopper kernel. Then
-    its loss and every gradient through the kernels against the same model
-    through plain attention."""
+    """A 2-layer fp32 model (d_model 512, remat "full") trains 3 steps
+    through ``make_train_step`` at ``FP32_TRAIN_MODELS``' heads: with 8 q /
+    4 kv heads of 64 every step launches the fp32 route's forward 2 x 2,
+    the general dQ 2 and the fp32 dK/dV 2, and no other kernel; with 2 / 2
+    heads of 256 the general forward 2 x 2, dQ 2 and dK/dV 2. Then each
+    one's loss and every gradient through the kernels against the same
+    model through plain attention, TF32 off."""
     from ray_tpu_torch.models import transformer as tf
     from ray_tpu_torch.ops import attention as att
     from ray_tpu_torch.parallel import make_optimizer, make_train_state, make_train_step
@@ -1353,53 +1509,62 @@ def fp32_training_phase(card: str) -> dict:
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("fp32 matmuls must run in fp32 (TF32 is on)")
     dev = torch.device("cuda")
-    cfg = tf.TransformerConfig(vocab_size=32000, d_model=512, n_layers=2, n_heads=8,
-                               n_kv_heads=4, d_ff=1536, max_seq_len=512, dtype=torch.float32,
-                               remat=True)
-    opt = make_optimizer(lr=3e-4, warmup=2)
-    params, opt_state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(10),
-                                         device=dev, optimizer=opt)
-    tokens = torch.randint(0, cfg.vocab_size, (4, 513), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(11))
-    step = make_train_step(cfg, opt)
-    L, steps = cfg.n_layers, 3
-    reset_launch_counts()
-    losses = []
-    for _ in range(steps):
-        params, opt_state, m = step(params, opt_state, {"tokens": tokens})
-        losses.append(float(m["loss"]))
-    launches = launch_counts()
-    want = {"fwd": 0, "dq": 0, "dkv": 0, "general_fwd": 2 * L * steps, "general_dq": L * steps,
-            "general_dkv": L * steps, "wide_fwd": 0, "wide_dq": 0, "wide_dkv": 0, "staged": 0}
-    if launches != want:
-        raise AssertionError(f"fp32 training launches {launches} != {want}")
+    L, steps = 2, 3
+    zero = {key: 0 for key in _counted()}
+    wants = {"fp32 route": {**zero, "fp32_fwd": 2 * L * steps, "general_dq": L * steps,
+                            "fp32_dkv": L * steps, "staged": 0},
+             "general route": {**zero, "general_fwd": 2 * L * steps, "general_dq": L * steps,
+                               "general_dkv": L * steps, "staged": 0}}
+    results = {}
+    for label, n_heads, n_kv_heads in FP32_TRAIN_MODELS:
+        cfg = tf.TransformerConfig(vocab_size=32000, d_model=512, n_layers=L, n_heads=n_heads,
+                                   n_kv_heads=n_kv_heads, d_ff=1536, max_seq_len=512,
+                                   dtype=torch.float32, remat=True)
+        opt = make_optimizer(lr=3e-4, warmup=2)
+        params, opt_state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(10),
+                                             device=dev, optimizer=opt)
+        tokens = torch.randint(0, cfg.vocab_size, (4, 513), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(11))
+        step = make_train_step(cfg, opt)
+        reset_launch_counts()
+        losses = []
+        for _ in range(steps):
+            params, opt_state, m = step(params, opt_state, {"tokens": tokens})
+            losses.append(float(m["loss"]))
+        launches = launch_counts()
+        if launches != wants[label]:
+            raise AssertionError(f"fp32 training ({label}) launches {launches} != "
+                                 f"{wants[label]}")
 
-    def plain_attn(q, k, v):
-        return att.flash_attention_plain(q, k, v, True, q.shape[-1] ** -0.5)[0]
+        def plain_attn(q, k, v):
+            return att.flash_attention_plain(q, k, v, True, q.shape[-1] ** -0.5)[0]
 
-    plain_attn.supports_gqa = True
-    leaves = param_leaves(params)
+        plain_attn.supports_gqa = True
+        leaves = param_leaves(params)
 
-    def loss_and_grads(attn_fn):
-        loss = tf.loss_fn(params, {"tokens": tokens}, cfg, attn_fn)
-        return loss.item(), torch.autograd.grad(loss, leaves)
+        def loss_and_grads(attn_fn):
+            loss = tf.loss_fn(params, {"tokens": tokens}, cfg, attn_fn)
+            return loss.item(), torch.autograd.grad(loss, leaves)
 
-    lk, gk = loss_and_grads(None)
-    lp, gp = loss_and_grads(plain_attn)
-    rel = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30) for a, b in zip(gk, gp)]
-    result = {"config": "fp32, vocab 32000, d_model 512, 2 layers, 8 q / 4 kv heads (head dim "
-                        "64), d_ff 1536, batch 4 x 512, remat full",
-              "losses": losses, "launches": launches, "loss_kernel": lk, "loss_plain": lp,
-              "loss_rel_err": abs(lk - lp) / abs(lp), "grad_rel_err_max": max(rel),
-              "loss_rel_tol": FP32_LOSS_REL_TOL, "grad_rel_tol": FP32_GRAD_REL_TOL}
-    log(f"[train fp32] general route on {card}: " + json.dumps(result))
-    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
-            and result["loss_rel_err"] <= FP32_LOSS_REL_TOL
-            and max(rel) <= FP32_GRAD_REL_TOL):
-        raise AssertionError(f"fp32 training through the general kernels: {result}")
-    del params, opt_state, leaves, gk, gp
-    torch.cuda.empty_cache()
-    return result
+        lk, gk = loss_and_grads(None)
+        lp, gp = loss_and_grads(plain_attn)
+        rel = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+               for a, b in zip(gk, gp)]
+        result = {"config": f"fp32, vocab 32000, d_model 512, 2 layers, {n_heads} q / "
+                            f"{n_kv_heads} kv heads (head dim {cfg.head_dim}), d_ff 1536, "
+                            "batch 4 x 512, remat full",
+                  "losses": losses, "launches": launches, "loss_kernel": lk, "loss_plain": lp,
+                  "loss_rel_err": abs(lk - lp) / abs(lp), "grad_rel_err_max": max(rel),
+                  "loss_rel_tol": FP32_LOSS_REL_TOL, "grad_rel_tol": FP32_GRAD_REL_TOL}
+        log(f"[train fp32] {label} on {card}: " + json.dumps(result))
+        if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+                and result["loss_rel_err"] <= FP32_LOSS_REL_TOL
+                and max(rel) <= FP32_GRAD_REL_TOL):
+            raise AssertionError(f"fp32 training through the {label}'s kernels: {result}")
+        results[label] = result
+        del params, opt_state, leaves, gk, gp
+        torch.cuda.empty_cache()
+    return {**results["fp32 route"], "general": results["general route"]}
 
 
 @timed_phase
@@ -4538,14 +4703,17 @@ def main() -> int:
         cli_phase(card, smi, full)
         return 0
     t0 = time.perf_counter()
-    sass = {}
-    for name, info in _build.build_all().items():
+    built = _build.build_all()
+    # One cuobjdump a library, all at once (one after another they took
+    # ~40 s of the build's wall time).
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(built)) as pool:
+        sass = dict(zip(built, pool.map(sass_counts, (info["path"] for info in built.values()))))
+    for name, info in built.items():
         log(f"[build] {name}.cu: {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling", "warning",
                                         "setmaxnreg", "wgmma")):
                 log(f"[build]   {line.strip()}")
-        sass[name] = sass_counts(info["path"])
         log(f"[build]   SASS of {name}: " + json.dumps(sass[name]))
     log(f"[build] all kernel libraries: {time.perf_counter() - t0:.2f} s wall")
     for name in HOPPER_KERNELS:
@@ -4599,7 +4767,7 @@ def main() -> int:
                   "gang_per_rank": [[st[key] for st in per_rank]
                                     for per_rank in runs_mpmd["gang"]["launches_per_rank"]]}
             for key in _counted()}
-        general_launches = fp32_training_phase(card)["launches"]
+        general_launches = fp32_training_phase(card)
         grad_check_phase(card)
         wide = wide_training_phase(card, smi, profile=args.profile)
         wide_launches = wide["train"]["launches"]
@@ -4643,15 +4811,20 @@ def main() -> int:
                     if "staged_fwd_ms" in r["tma"] else {})}
                 for r in gen["rows"] if r.get("tma", {}).get("route") == route]
 
-    general_note = ("launches: the fp32 training run (the general route's main path: fp32 and "
-                    "scale <= 0); plain_ms and library_ms of dq and dkv cover the whole backward")
+    general_note = ("launches: the fp32 training run at heads of 256 (the general route's "
+                    "main path: fp32 at head dims 129-256 or off the 4 grid, and scale <= 0); "
+                    "fp32_route_launches: the fp32 run at heads of 64, which runs the general "
+                    "dQ; plain_ms and library_ms of dq and dkv cover the whole backward")
     general_rows = [
         kernel_row(f"flash_general_{kind}", "ray_tpu_torch/ops/csrc/flash_general.cu",
                    f"ray_tpu/ops/attention.py:{line}",
-                   None if general_launches is None else general_launches[f"general_{kind}"],
+                   None if general_launches is None else
+                   general_launches["general"]["launches"][f"general_{kind}"],
                    gen["max_abs"][f"general_{kind}"], ghead[f"{kind}_ms"], plain(ghead, kind),
                    (ghead[f"{kind}_bound_ms"], ghead[f"{kind}_bound_by"]), library(ghead, kind),
                    ghead["shape"], smi, sass=sass["flash_general"], note=general_note,
+                   fp32_route_launches=None if general_launches is None else
+                   general_launches["launches"][f"general_{kind}"],
                    parallel_launches=parallel_launches[f"general_{kind}"],
                    mpmd_launches=mpmd_launches[f"general_{kind}"],
                    wide_training_launches=wide_launches[f"general_{kind}"],
@@ -4683,6 +4856,35 @@ def main() -> int:
                    shapes=route_shapes("hopper_wide", kind))
         for name, kind, line in (("fwd_wide", "fwd", 56), ("bwd_wide", "dq", 201),
                                  ("bwd_dkv_wide", "dkv", 262))]
+    fp32_rows = [
+        kernel_row(f"flash_{name}", f"ray_tpu_torch/ops/csrc/flash_{name}.cu",
+                   f"ray_tpu/ops/attention.py:{line}",
+                   None if general_launches is None else
+                   general_launches["launches"][f"fp32_{kind}"],
+                   gen["max_abs"][f"hopper_fp32_{kind}"], ghead["fp32"][f"{kind}_ms"],
+                   plain(ghead, kind), (ghead["fp32"][f"{kind}_bound_ms"],
+                                        ghead["fp32"][f"{kind}_bound_by"]),
+                   library(ghead, kind), ghead["shape"], smi, sass=sass[f"flash_{name}"],
+                   earlier_ms=ghead[f"{kind}_ms"],
+                   fma_bound_ms=ghead["fp32"][f"{kind}_fma_bound_ms"],
+                   note="launches: the fp32 training run (heads of 64); earlier_ms: the general "
+                        "kernel at the same shape; bound_ms at the split's rate (989 / 6 "
+                        "TFLOP/s), fma_bound_ms at the fp32 FMA peak; library_ms: SDPA with TF32 "
+                        "off" + ("" if kind == "fwd" else "; plain_ms and library_ms cover the "
+                                                          "whole backward"),
+                   **({"bitwise_repeatable": all(r["fp32"]["dkv_bitwise_repeatable"]
+                                                 for r in gen["rows"] if "fp32" in r),
+                       "plan": ghead["fp32"]["dkv_plan"]} if kind == "dkv" else {}),
+                   parallel_launches=parallel_launches[f"fp32_{kind}"],
+                   mpmd_launches=mpmd_launches[f"fp32_{kind}"],
+                   wide_training_launches=wide_launches[f"fp32_{kind}"],
+                   off_grid_training_launches=off_grid_launches[f"fp32_{kind}"],
+                   shapes=[{"shape": r["shape"], "ms": r["fp32"][f"{kind}_ms"],
+                            "bound_ms": r["fp32"][f"{kind}_bound_ms"],
+                            "fma_bound_ms": r["fp32"][f"{kind}_fma_bound_ms"],
+                            "earlier_ms": r[f"{kind}_ms"], "plain_ms": plain(r, kind),
+                            "library_ms": library(r, kind)} for r in gen["rows"] if "fp32" in r])
+        for name, kind, line in (("fwd_fp32", "fwd", 56), ("bwd_dkv_fp32", "dkv", 262))]
     by_policy_launches = {policy: row["launches_per_step"] for policy, row in by_policy.items()}
     kernels = [
         kernel_row("flash_fwd", "ray_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -4749,7 +4951,7 @@ def main() -> int:
                    off_grid_shapes=route_shapes("hopper", "dkv"),
                    off_grid_max_abs_err=gen["max_abs"]["hopper_dkv"],
                    note="plain_ms and library_ms cover the whole backward (dq, dk, dv)"),
-    ] + general_rows + wide_rows
+    ] + general_rows + wide_rows + fp32_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}), flush=True)

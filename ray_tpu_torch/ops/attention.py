@@ -11,7 +11,7 @@ and never materialise repeated K/V.
   → (dq, dk, dv) (the port of the JAX ``custom_vjp``; as ops they are
   opaque to the dispatcher, so a selective checkpoint policy can save
   their outputs). On CUDA tensors each op runs hand-written ``sm_90a``
-  kernels (built at first launch) on one of three routes, chosen by
+  kernels (built at first launch) on one of four routes, chosen by
   ``_kernel_route`` from dtype, head dim and scale:
   - "hopper" (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` for dQ,
     ``csrc/flash_bwd_dkv.cu`` for dK/dV): bf16/fp16, head dim up to 128,
@@ -19,12 +19,17 @@ and never materialise repeated K/V.
   - "hopper_wide" (``csrc/flash_fwd_wide.cu``, ``csrc/flash_bwd_wide.cu``
     for dQ, ``csrc/flash_bwd_dkv_wide.cu`` for dK/dV): bf16/fp16, head dim
     129-256, scale > 0;
-  - "general" (``csrc/flash_general.cu``, SIMT): fp32 and ``scale <= 0``,
-    up to head dim 256.
+  - "hopper_fp32" (``csrc/flash_fwd_fp32.cu``, then the general dQ of
+    ``csrc/flash_general.cu`` and ``csrc/flash_bwd_dkv_fp32.cu`` for dK/dV):
+    fp32, head dim up to 128 and a multiple of 4, scale > 0; bf16 wgmma on
+    a three-way bf16 split of every operand (fp32-accurate);
+  - "general" (``csrc/flash_general.cu``, SIMT): ``scale <= 0`` at any
+    dtype, and fp32 at head dims off the 4 grid or in 129-256.
   The TMA kernels of the first two take head dims that are multiples of 8
   (a TMA row is a multiple of 16 bytes) and zero-fill the columns up to
   their tile width; any other head dim goes through one zero-padded copy
-  to the next multiple of 8 (``stage_head_dim``). On CPU tensors the ops
+  to the next multiple of 8 (``stage_head_dim``); fp32 is never staged. On
+  CPU tensors the ops
   run the plain versions. A CUDA input no route takes raises; nothing
   falls back to the plain version on the card.
 - ``flash_attention_plain`` / ``flash_attention_bwd_plain``: the kernels'
@@ -39,6 +44,7 @@ and never materialise repeated K/V.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -46,14 +52,20 @@ import torch
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float16)
-# The routes whose kernels are built on TMA and wgmma (16-byte aligned
-# 16-bit inputs): the head dims each takes, and the grain of the head dims
-# their tensor maps take (rows of a multiple of 16 bytes). The wide route
-# starts where the Hopper tiles (D <= 128) end, at D = 192.
+# The routes whose kernels are built on TMA and wgmma over 16-bit inputs
+# (16-byte aligned): the head dims each takes, and the grain of the head
+# dims their tensor maps take (rows of a multiple of 16 bytes), below which
+# the ops stage. The wide route starts where the Hopper tiles (D <= 128)
+# end, at D = 192.
 _TMA_ROUTES = ("hopper", "hopper_wide")
 HOPPER_MAX_HEAD_DIM = 128
 WIDE_MIN_HEAD_DIM = HOPPER_MAX_HEAD_DIM + 1
 TMA_HEAD_DIM_GRAIN = 8
+# The fp32 route's kernels load fp32 tiles by TMA too (16-byte aligned, rows
+# of a multiple of 16 bytes: head dims a multiple of 4, up to the Hopper
+# tiles' 128); they are never staged.
+FP32_HEAD_DIM_GRAIN = 4
+_ALIGNED_ROUTES = _TMA_ROUTES + ("hopper_fp32",)
 # The general kernels' element types, by the code their entry points take.
 _GENERAL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 GENERAL_MAX_HEAD_DIM = 256
@@ -152,8 +164,12 @@ def _kernel_route(q, k, scale: float) -> str:
     ``flash_bwd_dkv.cu``) and ``"hopper_wide"`` in 129-256
     (``csrc/flash_fwd_wide.cu``, ``flash_bwd_wide.cu`` and
     ``flash_bwd_dkv_wide.cu``), a head dim off the 8 grid through one
-    zero-padded copy (``stage_head_dim``); ``"general"``
-    (``csrc/flash_general.cu``) for fp32 and ``scale <= 0``. A pure
+    zero-padded copy (``stage_head_dim``). For fp32 q and k with ``scale >
+    0`` and a head dim up to 128 that is a multiple of
+    ``FP32_HEAD_DIM_GRAIN``: ``"hopper_fp32"`` (``csrc/flash_fwd_fp32.cu``,
+    the general dQ, ``flash_bwd_dkv_fp32.cu``). ``"general"``
+    (``csrc/flash_general.cu``) for the rest: ``scale <= 0``, and fp32 off
+    the 4 grid or in 129-256. A pure
     function of shape, dtype and scale: it is not a fallback, and every
     route raises on a failed build or launch. Raises above head dim 256,
     which no route takes (the reference's Pallas kernels take any head
@@ -163,21 +179,25 @@ def _kernel_route(q, k, scale: float) -> str:
         raise ValueError(f"flash_attention kernels: head_dim {hd} > {GENERAL_MAX_HEAD_DIM}")
     if q.dtype in _KERNEL_DTYPES and k.dtype == q.dtype and scale > 0:
         return "hopper" if hd <= HOPPER_MAX_HEAD_DIM else "hopper_wide"
+    if (q.dtype == torch.float32 and k.dtype == q.dtype and scale > 0
+            and hd <= HOPPER_MAX_HEAD_DIM and hd % FP32_HEAD_DIM_GRAIN == 0):
+        return "hopper_fp32"
     return "general"
 
 
 def _check_kernel_inputs(q, k, v, route: str = "hopper"):
     """q/k/v as the ``route``'s kernels take them: one CUDA device, one
-    dtype (bf16/fp16 for "hopper" and "hopper_wide"; fp32, bf16 or fp16
-    for "general"), GQA-compatible 4-D shapes, the route's head dims,
-    contiguous (and 16-byte aligned for the TMA loads of the Hopper
-    routes)."""
+    dtype (bf16/fp16 for "hopper" and "hopper_wide"; fp32 for
+    "hopper_fp32"; fp32, bf16 or fp16 for "general"), GQA-compatible 4-D
+    shapes, the route's head dims, contiguous (and 16-byte aligned for the
+    TMA loads of the Hopper routes)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(
             f"flash_attention: q, k, v must share one CUDA device "
             f"(got {q.device}, {k.device}, {v.device})"
         )
-    dtypes = _KERNEL_DTYPES if route in _TMA_ROUTES else tuple(_GENERAL_DTYPES)
+    dtypes = (_KERNEL_DTYPES if route in _TMA_ROUTES else
+              (torch.float32,) if route == "hopper_fp32" else tuple(_GENERAL_DTYPES))
     if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"flash_attention {route} kernels take q/k/v of one dtype in {dtypes} "
@@ -195,37 +215,41 @@ def _check_kernel_inputs(q, k, v, route: str = "hopper"):
                                    or not WIDE_MIN_HEAD_DIM <= hd <= GENERAL_MAX_HEAD_DIM):
         raise ValueError(f"flash_attention wide kernels: head_dim {hd} must be a multiple of "
                          f"{TMA_HEAD_DIM_GRAIN} in [{WIDE_MIN_HEAD_DIM}, {GENERAL_MAX_HEAD_DIM}]")
+    if route == "hopper_fp32" and (hd % FP32_HEAD_DIM_GRAIN or hd > HOPPER_MAX_HEAD_DIM):
+        raise ValueError(f"flash_attention fp32 kernels: head_dim {hd} must be a multiple of "
+                         f"{FP32_HEAD_DIM_GRAIN}, <= {HOPPER_MAX_HEAD_DIM}")
     if not 0 < hd <= GENERAL_MAX_HEAD_DIM:
         raise ValueError(f"flash_attention general kernels: head_dim {hd} must be in "
                          f"[1, {GENERAL_MAX_HEAD_DIM}]")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention kernel: {name} must be contiguous")
-        if route in _TMA_ROUTES and t.data_ptr() % 16:
+        if route in _ALIGNED_ROUTES and t.data_ptr() % 16:
             raise ValueError(f"flash_attention kernel: {name} must be 16-byte aligned")
 
 
-def _kernel_fn(lib_name: str, fn_name: str, n_ptrs: int):
+def _kernel_fn(lib_name: str, fn_name: str, n_ptrs: int, n_flags: int = 1):
     """The C entry point ``fn_name`` of ``csrc/<lib_name>.cu``: ``n_ptrs``
     pointers, then (batch, heads, kv_heads, q_len, k_len, head_dim, scale,
-    causal, dtype flag, stream); the flag is ``is_bf16`` for the Hopper
-    kernels and the ``_GENERAL_DTYPES`` code for the general ones."""
+    causal, flags, stream); the one flag is ``is_bf16`` for the Hopper
+    kernels, the ``_GENERAL_DTYPES`` code for the general ones and unused
+    (0) by the fp32 forward; the fp32 dK/dV kernel takes two, its
+    ``fp32_dkv_plan``."""
     from ray_tpu_torch.ops import _build
 
     fn = getattr(_build.load(lib_name), fn_name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
+            ctypes.c_float, ctypes.c_int] + [ctypes.c_int] * n_flags + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _shape_args(q, k, causal: bool, scale: float, dtype_flag: int):
+def _shape_args(q, k, causal: bool, scale: float, *flags: int):
     """The shape arguments every entry point takes after its pointers."""
     b, H, q_len, hd = q.shape
     KV, k_len = k.shape[1], k.shape[2]
-    return (b, H, KV, q_len, k_len, hd, float(scale), int(bool(causal)), dtype_flag,
+    return (b, H, KV, q_len, k_len, hd, float(scale), int(bool(causal)), *flags,
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
@@ -237,7 +261,8 @@ def _launch(lib_name: str, fn_name: str, ptrs, shape_args):
     device, prev = ptrs[0].device, torch.cuda.current_device()
     torch.cuda.set_device(device)
     try:
-        err = _kernel_fn(lib_name, fn_name, len(ptrs))(*(t.data_ptr() for t in ptrs), *shape_args)
+        fn = _kernel_fn(lib_name, fn_name, len(ptrs), len(shape_args) - 9)
+        err = fn(*(t.data_ptr() for t in ptrs), *shape_args)
     finally:
         if prev != device.index:
             torch.cuda.set_device(prev)
@@ -271,7 +296,8 @@ def flash_forward_cuda(q, k, v, causal: bool, scale: float):
 def _check_bwd_inputs(q, k, v, like_q: dict, rows: dict, route: str = "hopper"):
     """q/k/v as the forward takes them; ``like_q`` tensors of q's shape and
     dtype and fp32 ``rows`` of ``[b, H, q_len]``, all contiguous (and
-    16-byte aligned for the Hopper routes' kernels) on q's device."""
+    16-byte aligned for the Hopper routes' kernels, fp32 included) on q's
+    device."""
     _check_kernel_inputs(q, k, v, route)
     for name, t in like_q.items():
         if t.shape != q.shape or t.dtype != q.dtype:
@@ -283,9 +309,9 @@ def _check_bwd_inputs(q, k, v, like_q: dict, rows: dict, route: str = "hopper"):
                              f"got {t.dtype} {tuple(t.shape)}")
     for name, t in {**like_q, **rows}.items():
         if t.device != q.device or not t.is_contiguous() or (
-                route in _TMA_ROUTES and t.data_ptr() % 16):
+                route in _ALIGNED_ROUTES and t.data_ptr() % 16):
             raise ValueError(f"flash backward: {name} must be a contiguous "
-                             f"{'16-byte aligned ' if route in _TMA_ROUTES else ''}tensor on "
+                             f"{'16-byte aligned ' if route in _ALIGNED_ROUTES else ''}tensor on "
                              f"{q.device}")
     if q.shape[2] == 0 or k.shape[2] == 0:
         raise ValueError("flash backward kernels: q_len and k_len must be > 0")
@@ -432,9 +458,112 @@ def flash_backward_wide_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
     return dq, dk, dv
 
 
+def _fp32_parts(q, rows: int):
+    """Scratch for the fp32 forward's split inputs: three bf16 planes of
+    ``rows`` rows of the head dim rounded up to 8 (``csrc/flash_fp32.cuh``)."""
+    return torch.empty(3 * rows * (-(-q.shape[-1] // 8) * 8), dtype=torch.bfloat16,
+                       device=q.device)
+
+
+def flash_forward_fp32_cuda(q, k, v, causal: bool, scale: float):
+    """Launch the fp32 forward kernel (``csrc/flash_fwd_fp32.cu``) → (o,
+    lse): fp32, head dim a multiple of 4 up to 128, scale > 0, on the
+    tensor cores through a three-way bf16 split; counts its launches in
+    ``flash_forward_fp32_cuda.launches``."""
+    _check_kernel_inputs(q, k, v, "hopper_fp32")
+    if not scale > 0:
+        raise ValueError(f"flash_attention fp32 kernel: scale must be > 0, got {scale}")
+    o, lse = _fwd_outputs(q, k)
+    if q.shape[2] == 0:
+        return o, lse
+    b, H, q_len, _ = q.shape
+    parts = _fp32_parts(q, b * H * q_len + 2 * b * k.shape[1] * k.shape[2])
+    _launch("flash_fwd_fp32", "flash_fwd_fp32", (q, k, v, o, lse, parts),
+            _shape_args(q, k, causal, scale, 0))
+    flash_forward_fp32_cuda.launches += 1
+    return o, lse
+
+
+def _fp32_dkv_tiles(hd: int):
+    """The fp32 dK/dV kernel's tile: (keys a block, queries a step)."""
+    return (128, 64) if hd <= 64 else (64, 32)
+
+
+@functools.lru_cache(maxsize=256)
+def fp32_dkv_plan(b: int, H: int, KV: int, q_len: int, k_len: int, hd: int, causal: bool,
+                  sms: int) -> Tuple[int, int]:
+    """The fp32 dK/dV kernel's blocks → (steps_per_block, blocks). A key
+    tile's work is its steps (a step: one q head of the kv head's group
+    over the tile's queries of a step's size, the causal diagonal on); the
+    kernel cuts each tile's steps into parts of at most ``steps_per_block``,
+    one block each. This picks the least ``steps_per_block`` whose blocks
+    fit one wave of ``sms`` SMs, and otherwise one block a tile. At
+    [2, 8/2, 1024, 64] causal: 32 tiles of 64 down to 8 steps; 10 steps a
+    block in 128 blocks. The kernel refuses a ``blocks`` that is not its
+    own count for ``steps_per_block``."""
+    block_k, block_q = _fp32_dkv_tiles(hd)
+    n_q = -(-q_len // block_q)
+    group = H // KV
+    steps = [group * max(0, n_q - (t * block_k // block_q if causal else 0))
+             for t in range(-(-k_len // block_k))]
+
+    def blocks(per_block: int) -> int:
+        return b * KV * sum(max(1, -(-n // per_block)) for n in steps)
+
+    lo, hi = 1, max(max(steps), 1)
+    if blocks(hi) > sms:
+        return hi, blocks(hi)
+    while lo < hi:  # blocks() does not grow with per_block
+        mid = (lo + hi) // 2
+        if blocks(mid) <= sms:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo, blocks(lo)
+
+
+def flash_bwd_dkv_fp32_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """Launch the fp32 dK/dV kernel (``csrc/flash_bwd_dkv_fp32.cu``) → (dk,
+    dv), kv-head shaped, as ``flash_bwd_dkv_cuda``: fp32, head dim a
+    multiple of 4 up to 128, scale > 0; ``delta`` is the one
+    ``flash_general_dq_cuda`` returns. Where ``fp32_dkv_plan`` cuts a key
+    tile into several blocks, their sums go through an fp32 scratch
+    allocated here. Counts its launches in
+    ``flash_bwd_dkv_fp32_cuda.launches``."""
+    _check_bwd_inputs(q, k, v, {"do": do}, {"lse": lse, "delta": delta}, "hopper_fp32")
+    if not scale > 0:
+        raise ValueError(f"flash_attention fp32 kernel: scale must be > 0, got {scale}")
+    b, H, q_len, hd = q.shape
+    KV, k_len = k.shape[1], k.shape[2]
+    per_block, blocks = fp32_dkv_plan(
+        b, H, KV, q_len, k_len, hd, bool(causal),
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
+    block_k = _fp32_dkv_tiles(hd)[0]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    sums = (torch.empty((2, blocks, block_k, hd), dtype=torch.float32, device=q.device)
+            if blocks > -(-k_len // block_k) * b * KV else dk.new_empty(0))
+    _launch("flash_bwd_dkv_fp32", "flash_bwd_dkv_fp32", (q, k, v, do, lse, delta, dk, dv, sums),
+            _shape_args(q, k, causal, scale, per_block, blocks))
+    flash_bwd_dkv_fp32_cuda.launches += 1
+    return dk, dv
+
+
+def flash_backward_fp32_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
+    """The backward on the card at fp32 → (dq, dk, dv), as
+    ``flash_backward_cuda``: the general dQ kernel (dQ and Δ, SIMT), then
+    the fp32 dK/dV kernel."""
+    _check_kernel_inputs(q, k, v, "hopper_fp32")
+    if q.shape[2] == 0:
+        return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq, delta = flash_general_dq_cuda(q, k, v, o, lse, do, causal, scale)
+    dk, dv = flash_bwd_dkv_fp32_cuda(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
 for _wrapper in (flash_bwd_dq_cuda, flash_bwd_dkv_cuda, flash_general_forward_cuda,
                  flash_general_dq_cuda, flash_general_dkv_cuda, flash_forward_wide_cuda,
-                 flash_bwd_dq_wide_cuda, flash_bwd_dkv_wide_cuda):
+                 flash_bwd_dq_wide_cuda, flash_bwd_dkv_wide_cuda, flash_forward_fp32_cuda,
+                 flash_bwd_dkv_fp32_cuda):
     _wrapper.launches = 0
 
 
@@ -496,8 +625,10 @@ def _flash_fwd_cpu(q, k, v, causal, scale):
 
 
 _FORWARD_BY_ROUTE = {"hopper": flash_forward_cuda, "hopper_wide": flash_forward_wide_cuda,
+                     "hopper_fp32": flash_forward_fp32_cuda,
                      "general": flash_general_forward_cuda}
 _BACKWARD_BY_ROUTE = {"hopper": flash_backward_cuda, "hopper_wide": flash_backward_wide_cuda,
+                      "hopper_fp32": flash_backward_fp32_cuda,
                       "general": flash_general_backward_cuda}
 
 
@@ -575,8 +706,10 @@ def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None)
     ``flash_bwd_dq_cuda.launches`` and ``flash_bwd_dkv_cuda.launches``,
     wide ones in ``flash_forward_wide_cuda.launches``,
     ``flash_bwd_dq_wide_cuda.launches`` and
-    ``flash_bwd_dkv_wide_cuda.launches``, general ones in
-    ``flash_general_{forward,dq,dkv}_cuda.launches``; calls through the
+    ``flash_bwd_dkv_wide_cuda.launches``, fp32 ones in
+    ``flash_forward_fp32_cuda.launches`` and
+    ``flash_bwd_dkv_fp32_cuda.launches`` (with the general dQ), general
+    ones in ``flash_general_{forward,dq,dkv}_cuda.launches``; calls through the
     zero-padded copy of ``stage_head_dim`` in ``stage_head_dim.uses``. CPU
     tensors run the plain versions."""
     s = scale if scale is not None else q.shape[-1] ** -0.5

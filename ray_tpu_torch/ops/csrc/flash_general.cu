@@ -1,13 +1,17 @@
 // Flash attention for the inputs the Hopper kernels do not take, bound
 // through plain C entry points (loaded with ctypes by
-// ray_tpu_torch/ops/attention.py). Of the three routes
+// ray_tpu_torch/ops/attention.py). Of the four routes
 // (attention.py:_kernel_route), "hopper" (flash_fwd.cu, flash_bwd.cu,
 // flash_bwd_dkv.cu) takes bf16/fp16 at head dims up to 128 and
 // "hopper_wide" (flash_fwd_wide.cu, flash_bwd_wide.cu,
 // flash_bwd_dkv_wide.cu) those in 129-256, both with scale > 0 (head dims
-// off the 8 grid through a zero-padded copy); this "general" route takes
-// the rest up to head dim 256: fp32 inputs and scale <= 0. Its kernels take
-// bf16 and fp16 too, and any head dim from 1 to 256.
+// off the 8 grid through a zero-padded copy); "hopper_fp32"
+// (flash_fwd_fp32.cu, this file's general_dq, flash_bwd_dkv_fp32.cu)
+// takes fp32 with scale > 0 at head dims up to 128 that are multiples of
+// 4; this "general" route takes the rest up to head dim 256: scale <= 0,
+// and fp32 at head dims 129-256 or off the 4 grid. Its dQ kernel is also
+// the fp32 route's. Its kernels take bf16 and fp16 too, and any head dim
+// from 1 to 256.
 //
 // Replaces the same three Pallas TPU kernels as flash_fwd.cu, flash_bwd.cu
 // and flash_bwd_dkv.cu, for every shape and type they take and those do not
@@ -48,8 +52,10 @@
 // What bounds it on an H100: fp32 FMAs at 67 TFLOP/s, and in practice the
 // shared-memory loads that feed them (one float4 of the tile row and one
 // broadcast float4 a block row for every 4 FMAs a row), and the tile loads,
-// which nothing overlaps with the FMAs. An fp32-input route through TF32
-// or bf16x3 wgmma is later work (ROADMAP).
+// which nothing overlaps with the FMAs. The fp32 route's forward and
+// dK/dV (flash_fwd_fp32.cu, flash_bwd_dkv_fp32.cu) take fp32 products to
+// the tensor cores through a three-way bf16 split; the dQ here is still
+// SIMT for every fp32 input (ROADMAP).
 #include "flash_common.cuh"
 
 #include <math.h>

@@ -77,6 +77,26 @@ inline cudaError_t make_map_3d(CUtensorMap* map, const void* ptr, bool bf16, int
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A rank-3 map over a contiguous fp32 [heads, len, hd] tensor (hd a
+// multiple of 4: rows of a multiple of 16 bytes), loading boxes of
+// box_rows x box_cols (one head) unswizzled: the box lands in shared
+// memory as a dense row-major [box_rows][box_cols] fp32 array. Rows past
+// len and columns past hd are zero-filled.
+inline cudaError_t make_map_3d_f32(CUtensorMap* map, const void* ptr, int heads, int len, int hd,
+                                   int box_rows, int box_cols) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)len, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)hd * 4, (cuuint64_t)len * hd * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // A warp-specialised kernel's register hand-over (setmaxnreg) only works
 // if the block was launched with at least the registers it hands out;
 // otherwise setmaxnreg.inc would wait forever. Checked before launching.
@@ -329,13 +349,16 @@ __device__ __forceinline__ uint64_t desc_at(Desc d, uint32_t offset_bytes) {
 template <int N, bool kBf16, int kTransB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N is 32, 64 or 128");
   if constexpr (N == 128) {
     if constexpr (kBf16) HOPPER_WGMMA_SS(128, "bf16", HOPPER_REGS64, HOPPER_ACC64(d), 64, 65, 66, 67);
     else HOPPER_WGMMA_SS(128, "f16", HOPPER_REGS64, HOPPER_ACC64(d), 64, 65, 66, 67);
-  } else {
+  } else if constexpr (N == 64) {
     if constexpr (kBf16) HOPPER_WGMMA_SS(64, "bf16", HOPPER_REGS32, HOPPER_ACC32(d), 32, 33, 34, 35);
     else HOPPER_WGMMA_SS(64, "f16", HOPPER_REGS32, HOPPER_ACC32(d), 32, 33, 34, 35);
+  } else {
+    if constexpr (kBf16) HOPPER_WGMMA_SS(32, "bf16", HOPPER_REGS16, HOPPER_ACC16(d), 16, 17, 18, 19);
+    else HOPPER_WGMMA_SS(32, "f16", HOPPER_REGS16, HOPPER_ACC16(d), 16, 17, 18, 19);
   }
 }
 

@@ -257,7 +257,7 @@ ROUTES = [
     ("bf16_hd16", torch.bfloat16, (1, 2, 48, 16), (1, 1, 48, 16), 0.25, "hopper"),
     # b·H = 65,600: the Hopper kernels schedule on a one-dimensional grid.
     ("bf16_bh65600", torch.bfloat16, (4100, 16, 16, 64), (4100, 16, 16, 64), 0.125, "hopper"),
-    ("fp32_hd64", torch.float32, (2, 8, 1024, 64), (2, 4, 1024, 64), 0.125, "general"),
+    ("fp32_hd64", torch.float32, (2, 8, 1024, 64), (2, 4, 1024, 64), 0.125, "hopper_fp32"),
     ("bf16_hd256", torch.bfloat16, (1, 16, 2048, 256), (1, 16, 2048, 256), 0.0625,
      "hopper_wide"),
     ("bf16_hd256_gqa", torch.bfloat16, (2, 8, 1024, 256), (2, 2, 1024, 256), 0.0625,
@@ -295,7 +295,7 @@ def test_kernel_route_takes_every_16bit_head_dim_to_the_tma_kernels(dtype):
         assert tatt._kernel_route(x, x, hd**-0.5) == ("hopper" if hd <= 128 else "hopper_wide")
         assert tatt._staged(x, x, hd**-0.5) == (hd % 8 != 0)
     f = _empty((1, 2, 8, 100), torch.float32)
-    assert not tatt._staged(f, f, 0.1) and tatt._kernel_route(f, f, 0.1) == "general"
+    assert not tatt._staged(f, f, 0.1) and tatt._kernel_route(f, f, 0.1) == "hopper_fp32"
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -203,9 +203,10 @@ def test_general_kernels_match_plain_on_card(cuda_device, name, qs, ks, causal, 
 
 @pytest.mark.cuda
 def test_flash_attention_routes_fp32_to_general_and_raises_above_256(cuda_device):
-    """fp32 inputs train through the general kernels (no plain version on
-    the card); head dim 264 raises."""
-    q, k, v, do = _card_inputs((1, 4, 40, 64), (1, 2, 40, 64), torch.float32, cuda_device, 31)
+    """fp32 inputs that the fp32 kernels do not take (head dim 6, off their
+    4 grid) train through the general kernels (no plain version on the
+    card); head dim 264 raises."""
+    q, k, v, do = _card_inputs((1, 4, 40, 6), (1, 2, 40, 6), torch.float32, cuda_device, 31)
     for t in (q, k, v):
         t.requires_grad_(True)
     before = (tatt.flash_general_forward_cuda.launches, tatt.flash_general_dq_cuda.launches,
