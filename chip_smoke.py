@@ -21,7 +21,8 @@ Phases, in order; any failure raises and the process exits non-zero:
      TMA-load (``UTMALDG``) and ``mma.sync`` (``HMMA``) instructions: every
      Hopper kernel (``HOPPER_KERNELS``, the wide ones included) must have
      the first two and none of the third (the fp32 route's
-     ``flash_fwd_fp32`` and ``flash_bwd_dkv_fp32`` among them;
+     ``flash_fwd_fp32``, ``flash_bwd_dq_fp32`` and ``flash_bwd_dkv_fp32``
+     among them;
      ``flash_general`` is SIMT: its counts are printed only);
   3. kernel phase: each Hopper kernel's wrapper on the card against its
      plain PyTorch version at the shapes the main paths give it (and the
@@ -51,14 +52,16 @@ Phases, in order; any failure raises and the process exits non-zero:
      ``DELTA_REL_TOL``), timed beside the general kernels, dQ and dK/dV
      each run twice bitwise equal; a head dim off the 8 grid on zero-padded
      copies, the ops' staged outputs bit-equal to them, each op counting one
-     ``stage_head_dim`` use; at each fp32 shape the fp32 route's forward
-     and dK/dV (``csrc/flash_fwd_fp32.cu``, ``flash_bwd_dkv_fp32.cu``, after
-     the general dQ) against the plain versions (o and lse within 2e-4, dK
-     and dV within ``FP32_DKV_REL_TOL`` of the largest value, dK/dV run
-     twice bitwise equal), timed beside the general kernels and SDPA with
-     TF32 off, bound at the split's rate; then the TMA kernels at
-     ``WIDE_EDGE_SHAPES``, ``OFF_GRID_EDGE_SHAPES`` and
-     ``FP32_EDGE_SHAPES`` (the edges of their tiles and widths);
+     ``stage_head_dim`` use; at each fp32 shape the fp32 route's forward,
+     dQ and dK/dV (``csrc/flash_fwd_fp32.cu``, ``flash_bwd_dq_fp32.cu``,
+     ``flash_bwd_dkv_fp32.cu``) against the plain versions (o and lse
+     within 2e-4, dQ, dK and dV within ``FP32_DKV_REL_TOL`` of the largest
+     value, the dQ kernel's delta within ``DELTA_REL_TOL`` of rowsum(dO *
+     O) in torch, dQ and dK/dV each run twice bitwise equal), timed beside
+     the general kernels and SDPA with TF32 off, bound at the split's rate;
+     then the TMA kernels at ``WIDE_EDGE_SHAPES``, ``OFF_GRID_EDGE_SHAPES``
+     and the fp32 kernels at ``FP32_EDGE_SHAPES`` (the edges of their tiles
+     and widths; the fp32 dQ timed there too);
   5. training phase: ``make_train_step`` on the 750M flagship config of
      ``bench.py`` (full width, full depth, remat, batch 12 x 2048, random
      weights and tokens from seeds) under each remat policy ("full",
@@ -68,8 +71,8 @@ Phases, in order; any failure raises and the process exits non-zero:
      kernel 10 times and no general kernel; the loss falls, and each
      policy's losses match "full"'s;
   6. fp32 training: a 2-layer fp32 model (heads of 64) trains a few steps
-     through the fp32 route (its forward and dK/dV kernels and the general
-     dQ, no other kernel), and the same model with heads of 256 through
+     through the fp32 route (its forward, dQ and dK/dV kernels, no other
+     kernel), and the same model with heads of 256 through
      the general kernels; each one's loss and gradients match the same
      model through plain attention;
   7. full-width gradient check: loss and every gradient of the 750M model
@@ -244,11 +247,12 @@ Phases, in order; any failure raises and the process exits non-zero:
      ``libcuda``; ``teardown_cluster`` must leave no head, monitor or
      agent and no cluster record.
  17. parallel phase (``parallel_phase``, after the training phases): the
-     750M flagship ("full", bf16 compute, fp32 params and AdamW) at a
-     global batch of ``PARALLEL_BATCH`` x 2048 under each of
-     ``PARALLEL_PLANS`` (fsdp2, tp2, sp2 ring, sp2 Ulysses, pp2 with 2
-     microbatches, ep2 on its MoE form with ``PARALLEL_EXPERTS`` experts,
-     top-2, at full width and depth, and fsdp2·tp2 on 4 ranks), its ranks
+     750M flagship at full width ("full", bf16 compute, fp32 params and
+     AdamW) cut to ``PARALLEL_LAYERS`` layers, at a global batch of
+     ``PARALLEL_BATCH`` x 2048 under each of ``PARALLEL_PLANS`` (fsdp2,
+     tp2, sp2 ring, sp2 Ulysses, pp2 with 2 microbatches, ep2 on its MoE
+     form with ``PARALLEL_EXPERTS`` experts, top-2, at full width, and
+     fsdp2·tp2 on 4 ranks), its ranks
      spawned processes sharing cuda:0 over gloo, one spawn for every plan
      of a world size, plan after plan (``build_mesh``; the backend, the
      bytes staged through the host, and the bytes of CUDA tensors handed
@@ -257,18 +261,19 @@ Phases, in order; any failure raises and the process exits non-zero:
      the three Hopper kernels at the plans' local shapes against their
      plain versions; then each plan for 3 steps, every rank's shards drawn
      straight from the bare step's seeds: every rank's losses and grad
-     norms within the plan's ``PARALLEL_REL_TOL`` of the bare step's, 20/10/10 Hopper launches a step on every rank (none
+     norms within the plan's ``PARALLEL_REL_TOL`` of the bare step's, 2L/L/L Hopper launches a step on every rank (L = ``PARALLEL_LAYERS``; none
      under the ring, whose blocks are einsums) and no general one, and
      each rank's step ms (ranks sharing one card: no multi-card speed) and
      peak memory printed.
  18. MPMD phase (``mpmd_phase``, after the parallel phase, held to its bare
      dense step): the same flagship and batch over ``MPMD_STAGES`` stages of
-     5 layers and ``MPMD_MICROBATCHES`` microbatches, 3 steps: (a) the
+     ``PARALLEL_LAYERS / MPMD_STAGES`` layers and ``MPMD_MICROBATCHES``
+     microbatches, 3 steps: (a) the
      single-process ``MpmdPipeline`` on cuda:0 in ``full_head`` and in
      ``per_microbatch``; (b) ``MpmdGangPipeline`` on 2 spawned gloo ranks
      sharing cuda:0, a stage each (the bridge's backend and the bytes
      staged through the host printed); each run's losses and grad norms
-     within ``MPMD_REL_TOL`` of the bare step's, and 30/10/10 Hopper
+     within ``MPMD_REL_TOL`` of the bare step's, and 6/2/2 Hopper
      launches a stage a step (each layer's forward in the wavefront, in the
      stage's recompute and in remat's, one dQ and one dK/dV per
      microbatch) and no general one; (c) a ``HopDeviceChannel`` round trip
@@ -356,7 +361,8 @@ EDGE_SHAPES = [
 # no mma.sync (the fp32 route's too: wgmma, not mma.sync, is the way to the
 # tensor cores' full rate on Hopper, and its split needs that rate).
 HOPPER_KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_dkv", "flash_fwd_wide",
-                  "flash_bwd_wide", "flash_bwd_dkv_wide", "flash_fwd_fp32", "flash_bwd_dkv_fp32")
+                  "flash_bwd_wide", "flash_bwd_dkv_wide", "flash_fwd_fp32", "flash_bwd_dq_fp32",
+                  "flash_bwd_dkv_fp32")
 # The dQ kernels' delta against rowsum(dO * O) in torch: fp32 sums of hd
 # products in another order, relative to the largest |delta|.
 DELTA_REL_TOL = 1e-4
@@ -742,8 +748,8 @@ def bwd_kernel_phase(card: str) -> dict:
 GENERAL_O_TOL_FP32 = 2e-4
 GENERAL_O_TOL_16 = 1e-2
 GENERAL_LSE_TOL = 2e-4
-# The fp32 route's dK and dV against the plain backward in fp32, relative to
-# the largest value. Its products are fp32-accurate splits (each term's
+# The fp32 route's dQ, dK and dV against the plain backward in fp32, relative
+# to the largest value. Its products are fp32-accurate splits (each term's
 # error below 2^-24 of the product) summed in the tensor cores' fp32
 # accumulators, a few hundred adds a sum: an fp32 emulation of the split on
 # the CPU reads <= 1e-6 (tests/test_torch_attention_fp32.py), the card
@@ -909,7 +915,8 @@ def general_kernel_phase(card: str) -> dict:
     rows = []
     max_abs = {f"{route}_{key}": 0.0 for route in ("general", "hopper", "hopper_wide")
                for key in ("fwd", "dq", "dkv", "delta")}
-    max_abs.update(hopper_fp32_fwd=0.0, hopper_fp32_dkv=0.0)
+    max_abs.update(hopper_fp32_fwd=0.0, hopper_fp32_dq=0.0, hopper_fp32_dkv=0.0,
+                   hopper_fp32_delta=0.0)
     fp32_s = 0.0  # the seconds of the fp32 route's rows, general kernels beside them included
     for label, b, H, KV, ql, kl, hd, causal, dtype, route in GENERAL_SHAPES:
         t_row = time.perf_counter()
@@ -973,13 +980,13 @@ def general_kernel_phase(card: str) -> dict:
                                                 row["tma"][f"{key}_abs_err"])
         elif route == "hopper_fp32":
             row["fp32"] = _fp32_check(q, k, v, do, causal, scale, o_ref, lse_ref, timed=True)
-            for kind in ("fwd", "dkv"):
+            for kind in ("fwd", "dq", "dkv"):
                 row["fp32"][f"{kind}_bound_ms"], row["fp32"][f"{kind}_bound_by"] = (
                     attention_bound_ms(b, H, KV, ql, kl, hd, causal, 4, card, kind, split=True))
                 row["fp32"][f"{kind}_fma_bound_ms"] = row[f"{kind}_bound_ms"]
             log(f"[kernel] flash_fp32 {label}: " + json.dumps(row["fp32"]))
             ok = ok and row["fp32"]["ok"]
-            for key in ("fwd", "dkv"):
+            for key in ("fwd", "dq", "dkv", "delta"):
                 max_abs[f"hopper_fp32_{key}"] = max(max_abs[f"hopper_fp32_{key}"],
                                                     row["fp32"][f"{key}_abs_err"])
         log(f"[kernel] flash_general {label} on {card}: " + json.dumps(row))
@@ -1006,6 +1013,7 @@ def general_kernel_phase(card: str) -> dict:
         for key in ("fwd", "dq", "dkv", "delta"):
             max_abs[f"{route}_{key}"] = max(max_abs[f"{route}_{key}"], row[f"{key}_abs_err"])
     t_edges = time.perf_counter()
+    fp32_edges = []
     for label, b, H, KV, ql, kl, hd, causal in FP32_EDGE_SHAPES:
         q, do = rand(b, H, ql, hd, dtype=torch.float32), rand(b, H, ql, hd, dtype=torch.float32)
         k, v = rand(b, KV, kl, hd, dtype=torch.float32), rand(b, KV, kl, hd, dtype=torch.float32)
@@ -1013,13 +1021,21 @@ def general_kernel_phase(card: str) -> dict:
         o_ref, lse_ref = att.flash_attention_plain(q, k, v, causal, scale)
         row = {"shape": label, "route": att._kernel_route(q, k, scale),
                **_fp32_check(q, k, v, do, causal, scale, o_ref, lse_ref, timed=False)}
+        row["dq_bound_ms"], row["dq_bound_by"] = attention_bound_ms(
+            b, H, KV, ql, kl, hd, causal, 4, card, "dq", split=True)
+        row["dq_fma_bound_ms"] = attention_bound_ms(b, H, KV, ql, kl, hd, causal, 4, card,
+                                                    "dq")[0]
+        row["library_bwd_ms"] = library_ms(lambda: sdpa_backward_ms(q, k, v, do, causal,
+                                                                    scale))
         log(f"[kernel] hopper_fp32 edge {label}: " + json.dumps(row))
         if not (row["ok"] and row["route"] == "hopper_fp32"):
             raise AssertionError(f"fp32 kernels disagree with their plain versions at {label}: "
                                  f"{row}")
-        for key in ("fwd", "dkv"):
+        for key in ("fwd", "dq", "dkv", "delta"):
             max_abs[f"hopper_fp32_{key}"] = max(max_abs[f"hopper_fp32_{key}"],
                                                 row[f"{key}_abs_err"])
+        fp32_edges.append({key: row[key] for key in ("shape", "dq_ms", "dq_bound_ms",
+                                                     "dq_fma_bound_ms", "library_bwd_ms")})
     log(f"[time] general_kernel_phase's hopper_fp32 rows: {fp32_s:.1f} s, its fp32 edges: "
         f"{time.perf_counter() - t_edges:.1f} s")
     # Keys past every query get exactly zero; inputs the wide kernels do
@@ -1059,52 +1075,66 @@ def general_kernel_phase(card: str) -> dict:
             raise AssertionError(f"the fp32 forward's wrapper accepted {what}")
     head = next(r for r in rows if r["shape"] == GENERAL_HEAD_LABEL)
     general_head = next(r for r in rows if r["shape"] == GENERAL_FP32_LABEL)
-    return {"rows": rows, "max_abs": max_abs, "head": head, "general_head": general_head}
+    return {"rows": rows, "max_abs": max_abs, "head": head, "general_head": general_head,
+            "fp32_edges": fp32_edges}
 
 
 def _fp32_check(q, k, v, do, causal, scale, o_ref, lse_ref, timed: bool) -> dict:
-    """The fp32 route's forward and dK/dV kernels against the plain versions
-    on the same fp32 inputs (TF32 off): o and lse within 2e-4, dK and dV
-    within ``FP32_DKV_REL_TOL`` of the largest value (Δ from the general dQ
-    kernel, as the route runs it); dK/dV run twice must agree bitwise (no
-    atomics); keys past every query get exactly zero. ``timed`` adds both
-    kernels' times."""
+    """The fp32 route's forward, dQ and dK/dV kernels against the plain
+    versions on the same fp32 inputs (TF32 off): o and lse within 2e-4, dQ,
+    dK and dV within ``FP32_DKV_REL_TOL`` of the largest value, the dQ
+    kernel's delta within ``DELTA_REL_TOL`` of rowsum(dO * O) in torch (the
+    dK/dV kernel reads that delta, as the route runs it); dQ and dK/dV each
+    run twice must agree bitwise (no atomics); keys past every query get
+    exactly zero. The dQ kernel is timed at every shape (the edges too);
+    ``timed`` adds the forward's and dK/dV's times."""
     from ray_tpu_torch.ops import attention as att
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("fp32 references must run in fp32 (TF32 is on)")
     o, lse = att.flash_forward_fp32_cuda(q, k, v, causal, scale)
-    _, delta = att.flash_general_dq_cuda(q, k, v, o, lse, do, causal, scale)
+    dq_runs = [att.flash_bwd_dq_fp32_cuda(q, k, v, o, lse, do, causal, scale)
+               for _ in range(2)]
+    dq, delta = dq_runs[0]
     runs = [att.flash_bwd_dkv_fp32_cuda(q, k, v, do, lse, delta, causal, scale)
             for _ in range(2)]
     torch.cuda.synchronize()
-    _, dk_ref, dv_ref = _plain_by_batch(att.flash_attention_bwd_plain, q, k, v, o, lse, do,
-                                        causal=causal, scale=scale)
+    dq_ref, dk_ref, dv_ref = _plain_by_batch(att.flash_attention_bwd_plain, q, k, v, o, lse,
+                                             do, causal=causal, scale=scale)
+    delta_ref = (do * o).sum(-1)
     _, o_abs, lse_err = _fwd_errors(o, lse, o_ref, lse_ref)
     row = {"route": "hopper_fp32", "head_dim": q.shape[-1], "fwd_abs_err": o_abs,
            "o_tol": GENERAL_O_TOL_FP32, "lse_err": lse_err, "lse_tol": GENERAL_LSE_TOL,
            "dkv_rel_tol": FP32_DKV_REL_TOL,
+           "delta_abs_err": (delta - delta_ref).abs().max().item(),
+           "delta_rel_tol": DELTA_REL_TOL,
            "dkv_plan": att.fp32_dkv_plan(*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
                                          q.shape[-1], bool(causal),
                                          torch.cuda.get_device_properties(q.device)
                                          .multi_processor_count),
+           "dq_bitwise_repeatable": all(torch.equal(a, b) for a, b in zip(*dq_runs)),
            "dkv_bitwise_repeatable": all(torch.equal(a, b) for a, b in zip(*runs))}
+    row["delta_rel_err"] = row["delta_abs_err"] / max(delta_ref.abs().max().item(), 1e-30)
     ok = (bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
           and o_abs <= GENERAL_O_TOL_FP32 and lse_err <= GENERAL_LSE_TOL
-          and row["dkv_bitwise_repeatable"])
+          and row["dq_bitwise_repeatable"] and row["dkv_bitwise_repeatable"]
+          and row["delta_rel_err"] <= DELTA_REL_TOL)
     dkv_abs = 0.0
-    for name, got, want in zip(("dk", "dv"), runs[0], (dk_ref, dv_ref)):
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, *runs[0]), (dq_ref, dk_ref, dv_ref)):
         err = (got - want).abs().max().item()
         row[f"{name}_abs_err"] = err
         row[f"{name}_rel_err"] = err / max(want.abs().max().item(), 1e-30)
         ok = ok and bool(torch.isfinite(got).all()) and got.shape == want.shape and (
             row[f"{name}_rel_err"] <= FP32_DKV_REL_TOL)
-        dkv_abs = max(dkv_abs, err)
+        if name != "dq":
+            dkv_abs = max(dkv_abs, err)
     row["dkv_abs_err"] = dkv_abs
     if causal and k.shape[2] > q.shape[2]:
         row["zero_past_queries"] = not any(t[:, :, q.shape[2]:].count_nonzero().item()
                                            for t in runs[0])
         ok = ok and row["zero_past_queries"]
+    row["dq_ms"] = time_ms(lambda: att.flash_bwd_dq_fp32_cuda(q, k, v, o, lse, do, causal,
+                                                              scale))
     if timed:
         row["fwd_ms"] = time_ms(lambda: att.flash_forward_fp32_cuda(q, k, v, causal, scale))
         row["dkv_ms"] = time_ms(lambda: att.flash_bwd_dkv_fp32_cuda(q, k, v, do, lse, delta,
@@ -1225,7 +1255,7 @@ def _counted():
             "general_dq": att.flash_general_dq_cuda, "general_dkv": att.flash_general_dkv_cuda,
             "wide_fwd": att.flash_forward_wide_cuda, "wide_dq": att.flash_bwd_dq_wide_cuda,
             "wide_dkv": att.flash_bwd_dkv_wide_cuda, "fp32_fwd": att.flash_forward_fp32_cuda,
-            "fp32_dkv": att.flash_bwd_dkv_fp32_cuda}
+            "fp32_dq": att.flash_bwd_dq_fp32_cuda, "fp32_dkv": att.flash_bwd_dkv_fp32_cuda}
 
 
 def launch_counts():
@@ -1249,7 +1279,8 @@ def no_general(per_step: dict) -> dict:
     """``per_step`` Hopper launches and no general, wide or fp32 ones, and
     no staged copy."""
     return {**per_step, "general_fwd": 0, "general_dq": 0, "general_dkv": 0, "wide_fwd": 0,
-            "wide_dq": 0, "wide_dkv": 0, "fp32_fwd": 0, "fp32_dkv": 0, "staged": 0}
+            "wide_dq": 0, "wide_dkv": 0, "fp32_fwd": 0, "fp32_dq": 0, "fp32_dkv": 0,
+            "staged": 0}
 
 
 def train_launches_per_step(cfg, policy: str) -> dict:
@@ -1497,7 +1528,7 @@ def fp32_training_phase(card: str) -> dict:
     """A 2-layer fp32 model (d_model 512, remat "full") trains 3 steps
     through ``make_train_step`` at ``FP32_TRAIN_MODELS``' heads: with 8 q /
     4 kv heads of 64 every step launches the fp32 route's forward 2 x 2,
-    the general dQ 2 and the fp32 dK/dV 2, and no other kernel; with 2 / 2
+    its dQ 2 and its dK/dV 2, and no other kernel; with 2 / 2
     heads of 256 the general forward 2 x 2, dQ 2 and dK/dV 2. Then each
     one's loss and every gradient through the kernels against the same
     model through plain attention, TF32 off."""
@@ -1511,7 +1542,7 @@ def fp32_training_phase(card: str) -> dict:
     dev = torch.device("cuda")
     L, steps = 2, 3
     zero = {key: 0 for key in _counted()}
-    wants = {"fp32 route": {**zero, "fp32_fwd": 2 * L * steps, "general_dq": L * steps,
+    wants = {"fp32 route": {**zero, "fp32_fwd": 2 * L * steps, "fp32_dq": L * steps,
                             "fp32_dkv": L * steps, "staged": 0},
              "general route": {**zero, "general_fwd": 2 * L * steps, "general_dq": L * steps,
                                "general_dkv": L * steps, "staged": 0}}
@@ -4083,8 +4114,14 @@ PARALLEL_PLANS = (
 )
 PARALLEL_EXPERTS = 4
 # A global batch of 4 x 2048 (the training phase's 12 x 2048 cut to 4:
-# two to four ranks and their fp32 states share the card's 80 GB), 3 steps.
-PARALLEL_BATCH, PARALLEL_SEQ, PARALLEL_STEPS = 4, 2048, 3
+# two to four ranks and their fp32 states share the card's 80 GB), 3 steps,
+# at full width and PARALLEL_LAYERS of the flagship's 10 layers. The phase
+# holds each plan to the bare step (parity, not speed), and its ranks share
+# cuda:0 over gloo, so its time tracks the bytes of the model's state
+# through the host: 2 layers (1 a pipeline stage) keep every plan's
+# collectives and the pipelines' hand-offs and cut those bytes (the
+# embeddings, 147M of the 750M parameters, stay whole).
+PARALLEL_BATCH, PARALLEL_SEQ, PARALLEL_STEPS, PARALLEL_LAYERS = 4, 2048, 3, 2
 # Each plan against the bare single-process step on the same weights and
 # batch, step by step, relative: name -> (loss, grad norm). A plan changes
 # only where bf16 values are rounded: a GEMM over half the rows (fsdp) or
@@ -4109,11 +4146,12 @@ PARALLEL_REL_TOL["ep2"] = (5e-4, 2e-3)
 
 
 def parallel_config(model: str):
-    """The training phase's flagship ("full" remat), or its MoE form."""
-    cfg = train_config("full")
-    if model == "moe":
-        import dataclasses
+    """The training phase's flagship ("full" remat) at PARALLEL_LAYERS
+    layers, or its MoE form."""
+    import dataclasses
 
+    cfg = dataclasses.replace(train_config("full"), n_layers=PARALLEL_LAYERS)
+    if model == "moe":
         cfg = dataclasses.replace(cfg, num_experts=PARALLEL_EXPERTS, experts_per_token=2)
     return cfg
 
@@ -4314,7 +4352,7 @@ def parallel_phase(card: str, smi: str) -> dict:
     torch.cuda.empty_cache()
     local = local_shape_kernel_check([(2, 18), (4, 9), (2, 9), (4, 18)])
     log("[parallel] Hopper kernels at the plans' local shapes: " + json.dumps(local))
-    dense = train_config("full")
+    dense = parallel_config("dense")
     per_step = no_general({"fwd": 2 * dense.n_layers, "dq": dense.n_layers,
                            "dkv": dense.n_layers})
     from ray_tpu_torch.parallel import MeshPlan
@@ -4365,18 +4403,20 @@ def parallel_phase(card: str, smi: str) -> dict:
             f"[parallel] {name}: loss off by {worst_loss} (tol {loss_tol}), grad norm by "
             f"{worst_gnorm} (tol {gnorm_tol}) against the bare step")
     seconds = time.perf_counter() - t_phase
-    result = {"config": "750M flagship (bench.py:240-241), bf16 compute, fp32 params and "
-                        f"AdamW, remat full, batch {PARALLEL_BATCH} x {PARALLEL_SEQ}; ep2 with "
-                        f"{PARALLEL_EXPERTS} experts top-2 at full width and depth",
+    result = {"config": "750M flagship (bench.py:240-241) at full width and "
+                        f"{PARALLEL_LAYERS} layers, bf16 compute, fp32 params and AdamW, remat "
+                        f"full, batch {PARALLEL_BATCH} x {PARALLEL_SEQ}; ep2 with "
+                        f"{PARALLEL_EXPERTS} experts top-2 at full width",
               "bare": bare, "local_shape_kernels": local, "plans": plans,
               "phase_seconds": seconds, "card": smi}
     log(f"[parallel] {len(plans)} plans in {seconds:.1f} s on {smi}")
     return result
 
 
-# The MPMD phase: the 750M flagship over MPMD_STAGES stages of 5 layers,
-# MPMD_MICROBATCHES microbatches of the parallel phase's 4 x 2048 batch
-# (cut from 12: the stages and their fp32 states share the card), 3 steps.
+# The MPMD phase: the parallel phase's flagship (PARALLEL_LAYERS layers)
+# over MPMD_STAGES stages, MPMD_MICROBATCHES microbatches of its 4 x 2048
+# batch (cut from 12: the stages and their fp32 states share the card), 3
+# steps.
 MPMD_STAGES, MPMD_MICROBATCHES, MPMD_STEPS = 2, 2, 3
 # The hop round trip's activation: a bf16 [4, 2048, 2304] (the batch's
 # hidden states at the flagship's width).
@@ -4442,7 +4482,7 @@ def mpmd_rank(rank: int, world: int, port: int, results):
         torch.cuda.set_device(dev)
         dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                                 world_size=world, timeout=datetime.timedelta(seconds=300))
-        cfg = train_config("full")
+        cfg = parallel_config("dense")
         torch.cuda.reset_peak_memory_stats()
         pipe, init_fn, step_fn = mpmd_gang_train_step_fns(
             cfg, MPMD_STAGES, optimizer=make_optimizer(lr=3e-4, warmup=10),
@@ -4503,7 +4543,7 @@ def mpmd_phase(card: str, smi: str, bare=None, profile: bool = False) -> dict:
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
-    cfg = train_config("full")
+    cfg = parallel_config("dense")
     opt = make_optimizer(lr=3e-4, warmup=10)
     if bare is None:
         params, state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -4558,8 +4598,9 @@ def mpmd_phase(card: str, smi: str, bare=None, profile: bool = False) -> dict:
            "reverse_bit_exact": ranks[0]["hop_back_equal"],
            "round_trip_ms": ranks[0]["hop_round_trip_ms"], "backend": ranks[0]["hop_backend"],
            "staged_bytes_per_rank": [r["hop_staged_bytes"] for r in ranks]}
-    result = {"config": f"750M flagship (bench.py:59-82), bf16 compute, fp32 params and AdamW, "
-                        f"remat full, batch {PARALLEL_BATCH} x {PARALLEL_SEQ}, {MPMD_STAGES} "
+    result = {"config": f"750M flagship (bench.py:59-82) at full width and {cfg.n_layers} "
+                        f"layers, bf16 compute, fp32 params and AdamW, remat full, batch "
+                        f"{PARALLEL_BATCH} x {PARALLEL_SEQ}, {MPMD_STAGES} "
                         f"stages of {cfg.n_layers // MPMD_STAGES} layers, "
                         f"{MPMD_MICROBATCHES} microbatches",
               "bare": {k: bare[k] for k in ("losses", "grad_norms", "step_ms", "profile") if k in bare},
@@ -4813,8 +4854,9 @@ def main() -> int:
 
     general_note = ("launches: the fp32 training run at heads of 256 (the general route's "
                     "main path: fp32 at head dims 129-256 or off the 4 grid, and scale <= 0); "
-                    "fp32_route_launches: the fp32 run at heads of 64, which runs the general "
-                    "dQ; plain_ms and library_ms of dq and dkv cover the whole backward")
+                    "fp32_route_launches: the fp32 run at heads of 64 (the fp32 route's, which "
+                    "runs no general kernel); plain_ms and library_ms of dq and dkv cover the "
+                    "whole backward")
     general_rows = [
         kernel_row(f"flash_general_{kind}", "ray_tpu_torch/ops/csrc/flash_general.cu",
                    f"ray_tpu/ops/attention.py:{line}",
@@ -4871,10 +4913,16 @@ def main() -> int:
                         "kernel at the same shape; bound_ms at the split's rate (989 / 6 "
                         "TFLOP/s), fma_bound_ms at the fp32 FMA peak; library_ms: SDPA with TF32 "
                         "off" + ("" if kind == "fwd" else "; plain_ms and library_ms cover the "
-                                                          "whole backward"),
+                                                          "whole backward")
+                        + ("; the kernel also computes delta; edge_shapes: FP32_EDGE_SHAPES"
+                           if kind == "dq" else ""),
                    **({"bitwise_repeatable": all(r["fp32"]["dkv_bitwise_repeatable"]
                                                  for r in gen["rows"] if "fp32" in r),
                        "plan": ghead["fp32"]["dkv_plan"]} if kind == "dkv" else {}),
+                   **({"bitwise_repeatable": all(r["fp32"]["dq_bitwise_repeatable"]
+                                                 for r in gen["rows"] if "fp32" in r),
+                       "delta_max_abs_err": gen["max_abs"]["hopper_fp32_delta"],
+                       "edge_shapes": gen["fp32_edges"]} if kind == "dq" else {}),
                    parallel_launches=parallel_launches[f"fp32_{kind}"],
                    mpmd_launches=mpmd_launches[f"fp32_{kind}"],
                    wide_training_launches=wide_launches[f"fp32_{kind}"],
@@ -4884,7 +4932,8 @@ def main() -> int:
                             "fma_bound_ms": r["fp32"][f"{kind}_fma_bound_ms"],
                             "earlier_ms": r[f"{kind}_ms"], "plain_ms": plain(r, kind),
                             "library_ms": library(r, kind)} for r in gen["rows"] if "fp32" in r])
-        for name, kind, line in (("fwd_fp32", "fwd", 56), ("bwd_dkv_fp32", "dkv", 262))]
+        for name, kind, line in (("fwd_fp32", "fwd", 56), ("bwd_dq_fp32", "dq", 201),
+                                 ("bwd_dkv_fp32", "dkv", 262))]
     by_policy_launches = {policy: row["launches_per_step"] for policy, row in by_policy.items()}
     kernels = [
         kernel_row("flash_fwd", "ray_tpu_torch/ops/csrc/flash_fwd.cu",

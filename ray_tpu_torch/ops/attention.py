@@ -19,10 +19,10 @@ and never materialise repeated K/V.
   - "hopper_wide" (``csrc/flash_fwd_wide.cu``, ``csrc/flash_bwd_wide.cu``
     for dQ, ``csrc/flash_bwd_dkv_wide.cu`` for dK/dV): bf16/fp16, head dim
     129-256, scale > 0;
-  - "hopper_fp32" (``csrc/flash_fwd_fp32.cu``, then the general dQ of
-    ``csrc/flash_general.cu`` and ``csrc/flash_bwd_dkv_fp32.cu`` for dK/dV):
-    fp32, head dim up to 128 and a multiple of 4, scale > 0; bf16 wgmma on
-    a three-way bf16 split of every operand (fp32-accurate);
+  - "hopper_fp32" (``csrc/flash_fwd_fp32.cu``, ``csrc/flash_bwd_dq_fp32.cu``
+    for dQ, ``csrc/flash_bwd_dkv_fp32.cu`` for dK/dV): fp32, head dim up to
+    128 and a multiple of 4, scale > 0; bf16 wgmma on a three-way bf16
+    split of every operand (fp32-accurate);
   - "general" (``csrc/flash_general.cu``, SIMT): ``scale <= 0`` at any
     dtype, and fp32 at head dims off the 4 grid or in 129-256.
   The TMA kernels of the first two take head dims that are multiples of 8
@@ -167,7 +167,7 @@ def _kernel_route(q, k, scale: float) -> str:
     zero-padded copy (``stage_head_dim``). For fp32 q and k with ``scale >
     0`` and a head dim up to 128 that is a multiple of
     ``FP32_HEAD_DIM_GRAIN``: ``"hopper_fp32"`` (``csrc/flash_fwd_fp32.cu``,
-    the general dQ, ``flash_bwd_dkv_fp32.cu``). ``"general"``
+    ``flash_bwd_dq_fp32.cu``, ``flash_bwd_dkv_fp32.cu``). ``"general"``
     (``csrc/flash_general.cu``) for the rest: ``scale <= 0``, and fp32 off
     the 4 grid or in 129-256. A pure
     function of shape, dtype and scale: it is not a fallback, and every
@@ -459,7 +459,7 @@ def flash_backward_wide_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
 
 
 def _fp32_parts(q, rows: int):
-    """Scratch for the fp32 forward's split inputs: three bf16 planes of
+    """Scratch for the fp32 kernels' split inputs: three bf16 planes of
     ``rows`` rows of the head dim rounded up to 8 (``csrc/flash_fp32.cuh``)."""
     return torch.empty(3 * rows * (-(-q.shape[-1] // 8) * 8), dtype=torch.bfloat16,
                        device=q.device)
@@ -482,6 +482,25 @@ def flash_forward_fp32_cuda(q, k, v, causal: bool, scale: float):
             _shape_args(q, k, causal, scale, 0))
     flash_forward_fp32_cuda.launches += 1
     return o, lse
+
+
+def flash_bwd_dq_fp32_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
+    """Launch the fp32 dQ kernel (``csrc/flash_bwd_dq_fp32.cu``) → (dq,
+    delta = rowsum(dO∘O) fp32 ``[b, H, q_len]``, which the fp32 dK/dV
+    kernel reads), as ``flash_bwd_dq_cuda``: fp32, head dim a multiple of 4
+    up to 128, scale > 0, on the tensor cores through a three-way bf16
+    split (k's and v's parts in scratch allocated here); counts its
+    launches in ``flash_bwd_dq_fp32_cuda.launches``."""
+    _check_bwd_inputs(q, k, v, {"o": o, "do": do}, {"lse": lse}, "hopper_fp32")
+    if not scale > 0:
+        raise ValueError(f"flash_attention fp32 kernel: scale must be > 0, got {scale}")
+    dq = torch.empty_like(q)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    parts = _fp32_parts(q, 2 * k.shape[0] * k.shape[1] * k.shape[2])
+    _launch("flash_bwd_dq_fp32", "flash_bwd_dq_fp32", (q, k, v, o, do, lse, dq, delta, parts),
+            _shape_args(q, k, causal, scale, 0))
+    flash_bwd_dq_fp32_cuda.launches += 1
+    return dq, delta
 
 
 def _fp32_dkv_tiles(hd: int):
@@ -526,7 +545,7 @@ def flash_bwd_dkv_fp32_cuda(q, k, v, do, lse, delta, causal: bool, scale: float)
     """Launch the fp32 dK/dV kernel (``csrc/flash_bwd_dkv_fp32.cu``) → (dk,
     dv), kv-head shaped, as ``flash_bwd_dkv_cuda``: fp32, head dim a
     multiple of 4 up to 128, scale > 0; ``delta`` is the one
-    ``flash_general_dq_cuda`` returns. Where ``fp32_dkv_plan`` cuts a key
+    ``flash_bwd_dq_fp32_cuda`` returns. Where ``fp32_dkv_plan`` cuts a key
     tile into several blocks, their sums go through an fp32 scratch
     allocated here. Counts its launches in
     ``flash_bwd_dkv_fp32_cuda.launches``."""
@@ -550,12 +569,12 @@ def flash_bwd_dkv_fp32_cuda(q, k, v, do, lse, delta, causal: bool, scale: float)
 
 def flash_backward_fp32_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
     """The backward on the card at fp32 → (dq, dk, dv), as
-    ``flash_backward_cuda``: the general dQ kernel (dQ and Δ, SIMT), then
-    the fp32 dK/dV kernel."""
+    ``flash_backward_cuda``: the fp32 dQ kernel (dQ and Δ), then the fp32
+    dK/dV kernel."""
     _check_kernel_inputs(q, k, v, "hopper_fp32")
     if q.shape[2] == 0:
         return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    dq, delta = flash_general_dq_cuda(q, k, v, o, lse, do, causal, scale)
+    dq, delta = flash_bwd_dq_fp32_cuda(q, k, v, o, lse, do, causal, scale)
     dk, dv = flash_bwd_dkv_fp32_cuda(q, k, v, do, lse, delta, causal, scale)
     return dq, dk, dv
 
@@ -563,7 +582,7 @@ def flash_backward_fp32_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
 for _wrapper in (flash_bwd_dq_cuda, flash_bwd_dkv_cuda, flash_general_forward_cuda,
                  flash_general_dq_cuda, flash_general_dkv_cuda, flash_forward_wide_cuda,
                  flash_bwd_dq_wide_cuda, flash_bwd_dkv_wide_cuda, flash_forward_fp32_cuda,
-                 flash_bwd_dkv_fp32_cuda):
+                 flash_bwd_dq_fp32_cuda, flash_bwd_dkv_fp32_cuda):
     _wrapper.launches = 0
 
 
@@ -707,8 +726,9 @@ def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None)
     wide ones in ``flash_forward_wide_cuda.launches``,
     ``flash_bwd_dq_wide_cuda.launches`` and
     ``flash_bwd_dkv_wide_cuda.launches``, fp32 ones in
-    ``flash_forward_fp32_cuda.launches`` and
-    ``flash_bwd_dkv_fp32_cuda.launches`` (with the general dQ), general
+    ``flash_forward_fp32_cuda.launches``,
+    ``flash_bwd_dq_fp32_cuda.launches`` and
+    ``flash_bwd_dkv_fp32_cuda.launches``, general
     ones in ``flash_general_{forward,dq,dkv}_cuda.launches``; calls through the
     zero-padded copy of ``stage_head_dim`` in ``stage_head_dim.uses``. CPU
     tensors run the plain versions."""

@@ -8,7 +8,7 @@
 // fp32 (natural-log) logsumexp:
 //   P  = exp(scale * Q K^T + mask - lse)       (masked entries underflow to 0)
 //   dP = dO V^T,  dS = P * (dP - delta),  delta = rowsum(dO * O) (fp32,
-//        written by the general dQ kernel, flash_general.cu, which runs
+//        written by the fp32 dQ kernel, flash_bwd_dq_fp32.cu, which runs
 //        first on this route)
 //   dV = P^T dO,  dK = scale * dS^T Q
 // to fp32 accuracy, with the forward's conventions: native GQA by index
@@ -28,8 +28,9 @@
 // three-way split (flash_fp32.cuh), bound at ~165 TFLOP/s: 0.0261 ms at
 // that shape, against ~0.003 ms of bytes, so bound by operations.
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W: this
-// design takes 0.0693 ms there (37% of that bound); with the general dQ
-// (0.2127) the backward takes 0.2820 against SDPA's 0.4334 (TF32 off).
+// design takes 0.0693 ms there (37% of that bound); with the SIMT general
+// dQ (0.2127), which this route ran first until flash_bwd_dq_fp32.cu, the
+// backward took 0.2820 against SDPA's 0.4334 (TF32 off).
 //
 // This design:
 //   - a block owns kBlockK keys of one kv head: 128 keys as two consumer

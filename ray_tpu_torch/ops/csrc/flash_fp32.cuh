@@ -1,9 +1,11 @@
 // Building blocks of the fp32 attention kernels (flash_fwd_fp32.cu,
-// flash_bwd_dkv_fp32.cu): the three-way bf16 split that lets bf16 wgmma
-// compute fp32 products, in registers (P and dS), over a TMA-loaded fp32
-// tile in shared memory (the dK/dV kernel), and as a pass over a whole
-// fp32 input into three bf16 planes that the forward then loads by TMA
-// like any 16-bit operand.
+// flash_bwd_dq_fp32.cu, flash_bwd_dkv_fp32.cu): the three-way bf16 split
+// that lets bf16 wgmma compute fp32 products, in registers (P and dS),
+// into a shared-memory tile from fp32 values in registers (store_split:
+// the dQ kernel's Q and dO, split_tile: the dK/dV kernel's TMA-loaded fp32
+// tiles), and as a pass over a whole fp32 input into three bf16 planes
+// that the forward and dQ kernels then load by TMA like any 16-bit
+// operand.
 //
 // The split (bf16x3). x = b0 + b1 + b2 + r with b0 = bf16(x),
 // b1 = bf16(x - b0), b2 = bf16(x - b0 - b1), each rounded to nearest; both
@@ -67,13 +69,30 @@ __device__ __forceinline__ void split_fragments(const float (&acc)[N], uint32_t 
     }
 }
 
+// Splits four columns x of row r, from the even column col on, into the
+// three bf16 tiles of geometry T (hopper::Tile: swizzled boxes, as wgmma
+// descriptors read them) at dst, dst + T::kBytes, dst + 2 T::kBytes: the
+// group's two pairs share a 16-byte chunk of the swizzled row, so each
+// part is one 8-byte store.
+template <typename T>
+__device__ __forceinline__ void store_split(uint32_t dst, int r, int col, float4 x) {
+  uint32_t a[3], b[3];
+  split_pair(x.x, x.y, a);
+  split_pair(x.z, x.w, b);
+  const uint32_t at = dst + T::pair_off(r, col);
+#pragma unroll
+  for (int s = 0; s < 3; ++s)
+    asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(at + s * T::kBytes), "r"(a[s]),
+                 "r"(b[s])
+                 : "memory");
+}
+
 // Splits kRows rows of a dense row-major fp32 tile (D columns, as an
 // unswizzled TMA box leaves it) into rows row0.. of three bf16 tiles of
 // geometry T (hopper::Tile: swizzled boxes, as wgmma descriptors read them)
-// at dst, dst + T::kBytes, dst + 2 T::kBytes. Called by `threads` threads,
-// thread `tid` taking every threads-th group of four columns; each group's
-// two pairs share a 16-byte chunk of the swizzled row, so each part is one
-// 8-byte store.
+// at dst, dst + T::kBytes, dst + 2 T::kBytes (store_split). Called by
+// `threads` threads, thread `tid` taking every threads-th group of four
+// columns.
 template <typename T, int D, int kRows>
 __device__ __forceinline__ void split_tile(const float* raw, uint32_t dst, int row0, int tid,
                                            int threads) {
@@ -81,16 +100,7 @@ __device__ __forceinline__ void split_tile(const float* raw, uint32_t dst, int r
 #pragma unroll 2
   for (int i = tid; i < kGroups; i += threads) {
     const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    const float4 x = reinterpret_cast<const float4*>(raw)[i];
-    uint32_t a[3], b[3];
-    split_pair(x.x, x.y, a);
-    split_pair(x.z, x.w, b);
-    const uint32_t at = dst + T::pair_off(row0 + r, c);
-#pragma unroll
-    for (int s = 0; s < 3; ++s)
-      asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(at + s * T::kBytes), "r"(a[s]),
-                   "r"(b[s])
-                   : "memory");
+    store_split<T>(dst, row0 + r, c, reinterpret_cast<const float4*>(raw)[i]);
   }
 }
 

@@ -6,12 +6,11 @@
 // "hopper_wide" (flash_fwd_wide.cu, flash_bwd_wide.cu,
 // flash_bwd_dkv_wide.cu) those in 129-256, both with scale > 0 (head dims
 // off the 8 grid through a zero-padded copy); "hopper_fp32"
-// (flash_fwd_fp32.cu, this file's general_dq, flash_bwd_dkv_fp32.cu)
-// takes fp32 with scale > 0 at head dims up to 128 that are multiples of
-// 4; this "general" route takes the rest up to head dim 256: scale <= 0,
-// and fp32 at head dims 129-256 or off the 4 grid. Its dQ kernel is also
-// the fp32 route's. Its kernels take bf16 and fp16 too, and any head dim
-// from 1 to 256.
+// (flash_fwd_fp32.cu, flash_bwd_dq_fp32.cu, flash_bwd_dkv_fp32.cu) takes
+// fp32 with scale > 0 at head dims up to 128 that are multiples of 4; this
+// "general" route takes the rest up to head dim 256: scale <= 0, and fp32
+// at head dims 129-256 or off the 4 grid. Its kernels take bf16 and fp16
+// too, and any head dim from 1 to 256.
 //
 // Replaces the same three Pallas TPU kernels as flash_fwd.cu, flash_bwd.cu
 // and flash_bwd_dkv.cu, for every shape and type they take and those do not
@@ -52,10 +51,9 @@
 // What bounds it on an H100: fp32 FMAs at 67 TFLOP/s, and in practice the
 // shared-memory loads that feed them (one float4 of the tile row and one
 // broadcast float4 a block row for every 4 FMAs a row), and the tile loads,
-// which nothing overlaps with the FMAs. The fp32 route's forward and
-// dK/dV (flash_fwd_fp32.cu, flash_bwd_dkv_fp32.cu) take fp32 products to
-// the tensor cores through a three-way bf16 split; the dQ here is still
-// SIMT for every fp32 input (ROADMAP).
+// which nothing overlaps with the FMAs. The fp32 route's kernels
+// (flash_fwd_fp32.cu, flash_bwd_dq_fp32.cu, flash_bwd_dkv_fp32.cu) take
+// fp32 products to the tensor cores through a three-way bf16 split.
 #include "flash_common.cuh"
 
 #include <math.h>

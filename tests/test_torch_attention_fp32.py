@@ -1,5 +1,5 @@
-"""The fp32 attention route ("hopper_fp32": ``csrc/flash_fwd_fp32.cu`` and
-``csrc/flash_bwd_dkv_fp32.cu``, with the general dQ) against
+"""The fp32 attention route ("hopper_fp32": ``csrc/flash_fwd_fp32.cu``,
+``csrc/flash_bwd_dq_fp32.cu`` and ``csrc/flash_bwd_dkv_fp32.cu``) against
 ``ray_tpu.ops.attention``.
 
 Its kernels compute fp32 products on bf16 tensor cores by a three-way
@@ -11,7 +11,8 @@ accumulation. The kernels only run on the card (``cuda`` marker;
 of that arithmetic, with the same splits, is held to the Pallas kernels in
 interpret mode at fp32 ("highest" matmul precision), within the card
 tolerances ``chip_smoke.py`` holds the kernels to: 2e-4 on o and lse,
-1e-4 of the largest value on dK and dV. The same emulation with one bf16
+1e-4 of the largest value on dQ, dK and dV, and 1e-4 of the largest |Δ| on
+the dQ kernel's Δ = rowsum(dO∘O). The same emulation with one bf16
 rounding of each operand (only a0·b0) must read at least 10x the split's
 error, so the card check can tell the two apart. The routes, the dK/dV
 kernel's block plan and the card tests are in the JAX-free
@@ -25,7 +26,8 @@ import torch
 
 from ray_tpu.ops import attention as jatt
 from ray_tpu_torch.ops import attention as tatt
-from test_torch_attention_fp32_card import DKV_REL_TOL, LSE_TOL, O_TOL, SHAPES, _inputs
+from test_torch_attention_fp32_card import (DELTA_REL_TOL, DKV_REL_TOL, LSE_TOL, O_TOL, SHAPES,
+                                            _inputs)
 
 # One Pallas block over each whole sequence (no ragged blocks in interpret
 # mode); jitted so each shape compiles once.
@@ -91,8 +93,9 @@ def emulated_forward(q, k, v, causal, scale, terms=TERMS):
 def emulated_dkv(q, k, v, o, lse, do, causal, scale, terms=TERMS):
     """The fp32 dK/dV kernel's arithmetic → (dk, dv), kv-head shaped:
     P = exp(scale·S − lse) with S split, dP = dO Vᵀ split, dS = P (dP − Δ)
-    with Δ = rowsum(dO∘O) (the general dQ kernel's), then dV = Pᵀ dO and
-    dK = scale·dSᵀ Q with Pᵀ and dSᵀ split; summed over each group."""
+    with Δ = rowsum(dO∘O), then dV = Pᵀ dO and
+    dK = scale·dSᵀ Q with Pᵀ and dSᵀ split; summed over each group (Δ is
+    the fp32 dQ kernel's, ``emulated_dq``)."""
     b, H, ql, hd = q.shape
     KV = k.shape[1]
     g = H // KV
@@ -107,19 +110,41 @@ def emulated_dkv(q, k, v, o, lse, do, causal, scale, terms=TERMS):
     return dk, dv
 
 
+def emulated_dq(q, k, v, o, lse, do, causal, scale, terms=TERMS):
+    """The fp32 dQ kernel's arithmetic → (dq, delta): Δ = rowsum(dO∘O) in
+    fp32 (its split pass over dO), P = exp(scale·S − lse) with S = Q Kᵀ
+    split, dP = dO Vᵀ split, dS = P (dP − Δ) in fp32, then dQ = scale·dS K
+    with dS split against K's parts. GQA by a grouped view."""
+    b, H, ql, hd = q.shape
+    KV = k.shape[1]
+    g = H // KV
+    qg, dog = (t.reshape(b, KV, g, ql, hd) for t in (q, do))
+    delta = (dog * o.reshape(b, KV, g, ql, hd)).sum(-1, keepdim=True)
+    kt, vt = k[:, :, None].transpose(-1, -2), v[:, :, None].transpose(-1, -2)
+    s = _mask(split_matmul(qg, kt, terms) * scale, causal)
+    p = torch.exp(s - lse.reshape(b, KV, g, ql, 1))
+    ds = p * (split_matmul(dog, vt, terms) - delta)
+    dq = split_matmul(ds, k[:, :, None], terms) * scale
+    return dq.reshape(b, H, ql, hd), delta.reshape(b, H, ql)
+
+
 def _pallas(arrays, causal, scale):
+    """(o, lse, dq, dk, dv, Δ) of the Pallas kernels in interpret mode;
+    Δ = rowsum(dO∘O) of the JAX side's o and dO, as ``_flash_backward``
+    computes it."""
     jq, jk, jv, jdo = (jnp.asarray(a) for a in arrays)
     with jax.default_matmul_precision("highest"):
         o, lse = _flash_forward(jq, jk, jv, causal, scale, BLOCK, BLOCK, True)
-        _, dk, dv = _flash_backward(jq, jk, jv, o, lse, jdo, causal, scale, BLOCK, BLOCK, True)
-    return [torch.tensor(np.asarray(x, np.float32)) for x in (o, lse, dk, dv)]
+        dq, dk, dv = _flash_backward(jq, jk, jv, o, lse, jdo, causal, scale, BLOCK, BLOCK, True)
+    delta = jnp.sum(jdo.astype(jnp.float32) * o.astype(jnp.float32), axis=-1)
+    return [torch.tensor(np.asarray(x, np.float32)) for x in (o, lse, dq, dk, dv, delta)]
 
 
 @pytest.mark.parametrize("name,qs,ks,causal", SHAPES, ids=[s[0] for s in SHAPES])
 def test_split_forward_matches_pallas_interpret(name, qs, ks, causal):
     arrays = _inputs(qs, ks, seed=50)
     scale = qs[-1] ** -0.5
-    o_ref, lse_ref, _, _ = _pallas(arrays, causal, scale)
+    o_ref, lse_ref, *_ = _pallas(arrays, causal, scale)
     q, k, v, _ = (torch.tensor(a) for a in arrays)
     o, lse = emulated_forward(q, k, v, causal, scale)
     o_err = (o - o_ref).abs().max().item()
@@ -132,7 +157,7 @@ def test_split_forward_matches_pallas_interpret(name, qs, ks, causal):
 def test_split_dkv_matches_pallas_interpret(name, qs, ks, causal):
     arrays = _inputs(qs, ks, seed=51)
     scale = qs[-1] ** -0.5
-    o, lse, dk_ref, dv_ref = _pallas(arrays, causal, scale)
+    o, lse, _, dk_ref, dv_ref, _ = _pallas(arrays, causal, scale)
     q, k, v, do = (torch.tensor(a) for a in arrays)
     errs, errs1 = [], []
     for terms, out in ((TERMS, errs), (((0, 0),), errs1)):
@@ -144,6 +169,37 @@ def test_split_dkv_matches_pallas_interpret(name, qs, ks, causal):
             assert not dk[:, :, qs[2]:].count_nonzero() and not dv[:, :, qs[2]:].count_nonzero()
     assert max(errs) <= DKV_REL_TOL, errs
     assert min(errs1) >= 10 * max(max(errs), 1e-7), (errs, errs1)
+
+
+@pytest.mark.parametrize("name,qs,ks,causal", SHAPES, ids=[s[0] for s in SHAPES])
+def test_split_dq_matches_pallas_interpret(name, qs, ks, causal):
+    """The fp32 dQ kernel's arithmetic (``emulated_dq``) and
+    ``flash_attention_bwd_plain``'s dq against the Pallas ``_flash_backward``'s
+    dq (interpret mode, "highest" precision), each within ``DKV_REL_TOL``
+    (1e-4) of the largest value: at these shapes the emulation reads
+    <= 8e-7 and plain fp32 <= 1.1e-6, so 1e-4 is the card's tolerance, not
+    a margin for these. Δ against rowsum(dO∘O) of the JAX side's o and dO within
+    ``DELTA_REL_TOL`` (1e-4) of the largest |Δ|: both are fp32 sums of the
+    same hd products in another order (~1e-7). One bf16 rounding of each
+    operand (only a0·b0) must read at least 10x the split's error."""
+    arrays = _inputs(qs, ks, seed=55)
+    scale = qs[-1] ** -0.5
+    o, lse, dq_ref, _, _, delta_ref = _pallas(arrays, causal, scale)
+    q, k, v, do = (torch.tensor(a) for a in arrays)
+
+    def rel(got):
+        assert got.shape == dq_ref.shape == qs
+        return (got - dq_ref).abs().max().item() / dq_ref.abs().max().item()
+
+    dq, delta = emulated_dq(q, k, v, o, lse, do, causal, scale)
+    err = rel(dq)
+    assert err <= DKV_REL_TOL, err
+    plain_dq = tatt.flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)[0]
+    assert rel(plain_dq) <= DKV_REL_TOL
+    delta_err = (delta - delta_ref).abs().max().item() / delta_ref.abs().max().item()
+    assert delta.shape == delta_ref.shape == qs[:3] and delta_err <= DELTA_REL_TOL, delta_err
+    dq1, _ = emulated_dq(q, k, v, o, lse, do, causal, scale, terms=((0, 0),))
+    assert rel(dq1) >= 10 * max(err, 1e-7), (err, rel(dq1))
 
 
 def test_split3_parts_sum_to_fp32():

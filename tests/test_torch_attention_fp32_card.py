@@ -1,8 +1,9 @@
-"""The fp32 attention route ("hopper_fp32": ``csrc/flash_fwd_fp32.cu`` and
-``csrc/flash_bwd_dkv_fp32.cu``, with the general dQ) without JAX: which
-inputs take it, the dK/dV kernel's block plan, its wrappers' refusal of
-CPU tensors, and (``cuda`` marker; skipped without a card) the kernels
-against their plain versions on the card, with the tolerances
+"""The fp32 attention route ("hopper_fp32": ``csrc/flash_fwd_fp32.cu``,
+``csrc/flash_bwd_dq_fp32.cu`` and ``csrc/flash_bwd_dkv_fp32.cu``) without
+JAX: which inputs take it, the dK/dV kernel's block plan, its backward's
+order of kernels, its wrappers' refusal of CPU tensors, and (``cuda``
+marker; skipped without a card) the kernels against their plain versions
+on the card, with the tolerances
 ``chip_smoke.py`` holds them to. On the card:
 ``python3 -m pytest --noconftest tests/test_torch_attention_fp32_card.py -q``.
 ``tests/test_torch_attention_fp32.py`` holds an emulation of the kernels'
@@ -14,11 +15,14 @@ import torch
 
 from ray_tpu_torch.ops import attention as tatt
 
-# o and lse absolute; dK and dV relative to the largest value (fp32
-# products through the split: chip_smoke.py's FP32_DKV_REL_TOL).
+# o and lse absolute; dQ, dK and dV relative to the largest value (fp32
+# products through the split: chip_smoke.py's FP32_DKV_REL_TOL); the dQ
+# kernel's Δ relative to the largest |rowsum(dO∘O)| (fp32 sums in another
+# order: chip_smoke.py's DELTA_REL_TOL).
 O_TOL = 2e-4
 LSE_TOL = 2e-4
 DKV_REL_TOL = 1e-4
+DELTA_REL_TOL = 1e-4
 
 
 def _inputs(qs, ks, seed):
@@ -101,14 +105,54 @@ def test_fp32_wrappers_refuse_cpu_tensors_and_count_nothing():
     """The fp32 wrappers never quietly run the plain version."""
     q = torch.zeros(1, 2, 16, 64)
     lse = torch.zeros(1, 2, 16)
-    before = (tatt.flash_forward_fp32_cuda.launches, tatt.flash_bwd_dkv_fp32_cuda.launches)
+    wrappers = (tatt.flash_forward_fp32_cuda, tatt.flash_bwd_dq_fp32_cuda,
+                tatt.flash_bwd_dkv_fp32_cuda, tatt.flash_general_dq_cuda)
+    before = [w.launches for w in wrappers]
     for call in (lambda: tatt.flash_forward_fp32_cuda(q, q, q, True, 0.125),
+                 lambda: tatt.flash_bwd_dq_fp32_cuda(q, q, q, q, lse, q, True, 0.125),
                  lambda: tatt.flash_bwd_dkv_fp32_cuda(q, q, q, q, lse, lse, True, 0.125),
                  lambda: tatt.flash_backward_fp32_cuda(q, q, q, q, lse, q, True, 0.125)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
-    assert (tatt.flash_forward_fp32_cuda.launches,
-            tatt.flash_bwd_dkv_fp32_cuda.launches) == before
+    assert [w.launches for w in wrappers] == before
+
+
+@pytest.mark.parametrize("entry", ["flash_backward_fp32_cuda", "backward_by_route",
+                                   "routed_backward"])
+def test_fp32_backward_calls_the_fp32_dq_then_the_fp32_dkv(monkeypatch, entry):
+    """The fp32 route's backward is the fp32 dQ kernel (dQ and Δ) and then
+    the fp32 dK/dV kernel, which reads that Δ; it never calls the general
+    dQ. The launch wrappers are replaced by recorders, and the input check
+    by a no-op, so the calls show without a card."""
+    calls = []
+    q = torch.zeros(1, 4, 16, 64)
+    k = torch.zeros(1, 2, 16, 64)
+    lse = torch.zeros(1, 4, 16)
+    delta = torch.full((1, 4, 16), 3.0)
+
+    def fp32_dq(q_, k_, v_, o, lse_, do, causal, scale):
+        calls.append("fp32_dq")
+        assert causal and scale == 0.125
+        return torch.ones_like(q), delta
+
+    def fp32_dkv(q_, k_, v_, do, lse_, delta_, causal, scale):
+        calls.append("fp32_dkv")
+        assert delta_ is delta and causal and scale == 0.125
+        return torch.ones_like(k), torch.ones_like(k)
+
+    def general_dq(*args):
+        raise AssertionError("the fp32 route called the general dQ kernel")
+
+    monkeypatch.setattr(tatt, "_check_kernel_inputs", lambda *args: None)
+    monkeypatch.setattr(tatt, "flash_bwd_dq_fp32_cuda", fp32_dq)
+    monkeypatch.setattr(tatt, "flash_bwd_dkv_fp32_cuda", fp32_dkv)
+    monkeypatch.setattr(tatt, "flash_general_dq_cuda", general_dq)
+    backward = {"flash_backward_fp32_cuda": tatt.flash_backward_fp32_cuda,
+                "backward_by_route": tatt._BACKWARD_BY_ROUTE["hopper_fp32"],
+                "routed_backward": tatt._flash_bwd_cuda}[entry]
+    dq, dk, dv = backward(q, k, k, q, lse, q, True, 0.125)
+    assert calls == ["fp32_dq", "fp32_dkv"]
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
 
 
 @pytest.fixture
@@ -121,9 +165,10 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,qs,ks,causal", SHAPES, ids=[s[0] for s in SHAPES])
 def test_fp32_kernels_match_plain_on_card(cuda_device, name, qs, ks, causal):
-    """The fp32 forward and dK/dV kernels against the plain versions in
-    fp32 on the same inputs (TF32 off): o and lse within 2e-4, dK and dV
-    within 1e-4 of the largest value, dK/dV bitwise repeatable."""
+    """The fp32 forward, dQ and dK/dV kernels against the plain versions in
+    fp32 on the same inputs (TF32 off): o and lse within 2e-4, dQ, dK and
+    dV within 1e-4 of the largest value, the dQ kernel's Δ within 1e-4 of
+    the largest |rowsum(dO∘O)|, dQ and dK/dV bitwise repeatable."""
     assert not torch.backends.cuda.matmul.allow_tf32
     q, k, v, do = (torch.tensor(a, device=cuda_device) for a in _inputs(qs, ks, seed=53))
     scale = qs[-1] ** -0.5
@@ -131,28 +176,42 @@ def test_fp32_kernels_match_plain_on_card(cuda_device, name, qs, ks, causal):
     o_ref, lse_ref = tatt.flash_attention_plain(q, k, v, causal, scale)
     assert (o - o_ref).abs().max().item() <= O_TOL
     assert (lse - lse_ref).abs().max().item() <= LSE_TOL
-    _, delta = tatt.flash_general_dq_cuda(q, k, v, o, lse, do, causal, scale)
+    dq_runs = [tatt.flash_bwd_dq_fp32_cuda(q, k, v, o, lse, do, causal, scale)
+               for _ in range(2)]
+    dq, delta = dq_runs[0]
+    delta_ref = (do * o).sum(-1)
+    assert (delta - delta_ref).abs().max().item() <= DELTA_REL_TOL * delta_ref.abs().max().item()
     runs = [tatt.flash_bwd_dkv_fp32_cuda(q, k, v, do, lse, delta, causal, scale)
             for _ in range(2)]
-    _, dk_ref, dv_ref = tatt.flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
-    for got, ref in zip(runs[0], (dk_ref, dv_ref)):
+    refs = tatt.flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
+    for got, ref in zip((dq, *runs[0]), refs):
         assert got.shape == ref.shape
         assert (got - ref).abs().max().item() <= DKV_REL_TOL * ref.abs().max().item()
+    assert all(torch.equal(a, b) for a, b in zip(*dq_runs))
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.cuda
-def test_flash_attention_takes_the_fp32_route_on_card(cuda_device):
-    """fp32 at head dim 64 trains through the fp32 forward, the general dQ
-    and the fp32 dK/dV, and no other kernel."""
-    q, k, v, do = (torch.tensor(a, device=cuda_device)
-                   for a in _inputs((1, 4, 96, 64), (1, 2, 96, 64), seed=54))
+@pytest.mark.parametrize("qs,ks", [((1, 4, 96, 64), (1, 2, 96, 64)),
+                                   ((1, 4, 70, 128), (1, 1, 70, 128))],
+                         ids=["gqa_2to1_96_hd64", "gqa_4to1_70_hd128"])
+def test_flash_attention_takes_the_fp32_route_on_card(cuda_device, qs, ks):
+    """fp32 at head dims 64 and 128 trains through the fp32 forward, dQ and
+    dK/dV, and no other kernel (no general dQ); the gradients match the
+    plain backward within 1e-4 of the largest value."""
+    q, k, v, do = (torch.tensor(a, device=cuda_device) for a in _inputs(qs, ks, seed=54))
     for t in (q, k, v):
         t.requires_grad_(True)
-    counters = (tatt.flash_forward_fp32_cuda, tatt.flash_general_dq_cuda,
+    counters = (tatt.flash_forward_fp32_cuda, tatt.flash_bwd_dq_fp32_cuda,
                 tatt.flash_bwd_dkv_fp32_cuda, tatt.flash_general_forward_cuda,
-                tatt.flash_general_dkv_cuda, tatt.flash_attention, tatt.flash_bwd_dq_cuda,
-                tatt.flash_bwd_dkv_cuda)
+                tatt.flash_general_dq_cuda, tatt.flash_general_dkv_cuda, tatt.flash_attention,
+                tatt.flash_bwd_dq_cuda, tatt.flash_bwd_dkv_cuda)
     before = [c.launches for c in counters]
-    torch.autograd.grad(tatt.flash_attention(q, k, v), (q, k, v), do)
-    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 0, 0, 0, 0, 0]
+    grads = torch.autograd.grad(tatt.flash_attention(q, k, v), (q, k, v), do)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 0, 0, 0, 0, 0, 0]
+    scale = qs[-1] ** -0.5
+    with torch.no_grad():
+        o, lse = tatt.flash_attention_plain(q, k, v, True, scale)
+        refs = tatt.flash_attention_bwd_plain(q, k, v, o, lse, do, True, scale)
+    for got, ref in zip(grads, refs):
+        assert (got - ref).abs().max().item() <= DKV_REL_TOL * ref.abs().max().item()
